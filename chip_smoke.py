@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: build the CUDA kernels,
-drive the main path at Give Me Some Credit scale, hold each kernel against
-its plain PyTorch version, serve requests, and print what was measured.
+drive the single-tree and forest paths at Give Me Some Credit scale, hold
+each kernel against its plain PyTorch version, serve requests, and print
+what was measured.
 
     python3 chip_smoke.py
 
@@ -27,7 +28,19 @@ Phases (any failed check raises, so the script exits non-zero):
    take (bytes over the card's memory rate, operations over its peak);
 5. serving: ``TCAMServer`` on credit, warmed up, serving 4096 test queries;
    results equal ``tcam_infer``'s;
-6. the last line: ``{"ok": true, "device": {...}}``.
+6. forest: fit the credit forest (``train_forest`` defaults: 25 bagged
+   trees at ``max_depth=12``, seed 0), compile at S=128 and plan it (two
+   groups).  Main path: ``ForestExecutor(engine="mxu")`` on all 12,027 test
+   queries, the banked kernel's counter zeroed before and read after (one
+   launch per group): predictions equal the trees' hard vote, one survivor
+   per bank and query; engines banked and ref give the same ``ForestResult``
+   on a slice.  Then the banked kernel at both group shapes against its
+   plain version (an SA kmax holding -1, 0 and >0; stuck faults in the first
+   group), timed beside a bf16 ``torch.bmm`` yardstick and its bound; then
+   forest serving of 4096 queries with engines mxu and auto (= banked),
+   equal to the executor;
+7. the kernels line, the card's name and power limit, and the last line:
+   ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.
 """
@@ -49,6 +62,13 @@ PEAK_BW = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
 PEAK_INT8_TENSOR = 1979e12   # dense int8 tensor-core rate, H100 SXM
 PEAK_CUDA_CORE = 67e12       # non-tensor fp32 rate, H100 SXM (int32 ALU bound)
 SERVE_REQUESTS = 4096
+FOREST_SLICE = 512           # queries checked on the banked and ref engines
+REPLACES = {"tcam_match": "src/repro/kernels/tcam_match.py:38",
+            "tcam_packed": "src/repro/kernels/tcam_packed.py:30",
+            "tcam_match_banked": "src/repro/kernels/banked.py:147"}
+SOURCES = {"tcam_match": "src/repro_torch/csrc/tcam_match.cu",
+           "tcam_packed": "src/repro_torch/csrc/tcam_packed.cu",
+           "tcam_match_banked": "src/repro_torch/csrc/tcam_match.cu"}
 
 
 def check(cond: bool, what: str) -> None:
@@ -67,14 +87,16 @@ def peak_bw(name: str) -> float:
     raise RuntimeError(f"no memory-rate entry for card {name!r}")
 
 
-def same_result(a, b, what: str) -> None:
+def same_result(a, b, what: str, skip: tuple = ()) -> None:
     import dataclasses
 
     import numpy as np
     for f in dataclasses.fields(a):
+        if f.name in skip:
+            continue
         x, y = getattr(a, f.name), getattr(b, f.name)
         ok = np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y
-        check(bool(ok), f"{what}: SimResult.{f.name} differs")
+        check(bool(ok), f"{what}: {type(a).__name__}.{f.name} differs")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -94,6 +116,233 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def measure(kname: str, cases: list, launches: int, bw: float) -> dict:
+    """Hold a kernel against its plain version (``torch.equal``) and time
+    both, with a PyTorch yardstick, at each of ``cases``: dicts with ``run``,
+    ``plain``, ``library`` (or None), ``inputs``, ``ops_per_eval``,
+    ``op_peak`` and ``shape``.  Times, bytes and bounds add up over the cases
+    (the launches one pass of the main path makes); ``bound_ms`` is the
+    larger of bytes over the memory rate and operations over the peak."""
+    import torch
+    rec = {"name": kname, "route": "cuda", "source": SOURCES[kname],
+           "replaces": REPLACES[kname], "launches": launches,
+           "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "bound_by": "bytes", "library_ms": None, "bytes": 0,
+           "evaluated_divisions": 0, "cases": []}
+    t_bytes = t_ops = 0.0
+    for case in cases:
+        run, plain = case["run"], case["plain"]
+        got = run()
+        torch.cuda.synchronize()
+        want = plain()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            check(torch.equal(g, w), f"{kname} {case['shape']}: kernel == "
+                  "plain version")
+        rec["max_abs_err"] = max(
+            [rec["max_abs_err"]]
+            + [float((g - w).abs().max()) for g, w in zip(got, want)])
+        evals_total = int(got[1].sum(dtype=torch.int64))
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (*case["inputs"], *got))
+        del got, want
+        c_bytes = nbytes / bw * 1e3
+        c_ops = evals_total * case["ops_per_eval"] / case["op_peak"] * 1e3
+        t_bytes, t_ops = t_bytes + c_bytes, t_ops + c_ops
+        one = {"shape": case["shape"], "ms": cuda_ms(run, reps=10, warmup=2),
+               "plain_ms": cuda_ms(plain, reps=3),
+               "library_ms": (None if case["library"] is None
+                              else cuda_ms(case["library"], 10, 2)),
+               "bound_ms": max(c_bytes, c_ops), "bytes": nbytes,
+               "evaluated_divisions": evals_total}
+        for k in ("ms", "plain_ms", "bytes", "evaluated_divisions"):
+            rec[k] += one[k]
+        if one["library_ms"] is not None:
+            rec["library_ms"] = (rec["library_ms"] or 0.0) + one["library_ms"]
+        rec["cases"].append(one)
+    rec["bound_ms"] = max(t_bytes, t_ops)
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    if len(cases) == 1:
+        rec["shape"] = rec.pop("cases")[0]["shape"]
+    log(json.dumps(rec))
+    return rec
+
+
+def hard_vote(trees, X, n_classes: int):
+    """The ensemble's own decision: each tree's ``predict``, argmax of the
+    vote counts with ties to the lowest class."""
+    import numpy as np
+
+    from repro_torch.core import predict
+    votes = np.stack([predict(t, X) for t in trees])
+    counts = np.zeros((X.shape[0], n_classes), np.int64)
+    np.add.at(counts, (np.broadcast_to(np.arange(X.shape[0]), votes.shape),
+                       votes), 1)
+    return np.argmax(counts, axis=1)
+
+
+def forest_phase(dev, bw: float, *, dataset: str = "credit",
+                 n_trees: int = 25, s: int = 128,
+                 n_slice: int = FOREST_SLICE,
+                 n_serve: int = SERVE_REQUESTS) -> tuple[dict, dict]:
+    """Phase 6: the forest path.  Returns the banked kernel's record and
+    the serving summary."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import CELL_MM, DEFAULT_HW, apply_saf
+    from repro_torch.dt import load_split
+    from repro_torch.forest import (ForestExecutor, compile_forest,
+                                    encode_group, forest_infer_ref,
+                                    plan_forest, train_forest)
+    from repro_torch.kernels import (prepare_banked, sa_kmax,
+                                     tcam_match_banked_cuda,
+                                     tcam_match_banked_plain, tcam_match_cuda,
+                                     tcam_match_packed_cuda)
+    from repro_torch.serve import ServeConfig, TCAMServer
+
+    Xtr, ytr, Xte, _ = load_split(dataset)
+    t0 = time.perf_counter()
+    trees = train_forest(Xtr, ytr, n_trees=n_trees)
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    forest = compile_forest(trees, s=s)
+    t_compile = time.perf_counter() - t0
+    plan = plan_forest(forest)
+    log(json.dumps({"forest": {
+        "dataset": dataset, "trees": n_trees, "s": s, "fit_s": t_fit,
+        "compile_s": t_compile, "plan_id": plan.plan_id,
+        "bank_rows": [int(l.cells.shape[0]) for l in forest.layouts],
+        "bank_divisions": [int(l.n_cwd) for l in forest.layouts],
+        "groups": [{"G": g.n_banks, "R": g.r_pad, "D": g.d_pad,
+                    "W": g.width} for g in plan.groups]}}))
+    golden = hard_vote(trees, Xte, forest.n_classes)
+
+    # -- main path: ForestExecutor on the CUDA kernel ----------------------
+    ex = ForestExecutor(forest, engine="mxu", device=dev, plan=plan)
+    for kernel in (tcam_match_cuda, tcam_match_packed_cuda,
+                   tcam_match_banked_cuda):
+        kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ex.infer(Xte)
+    t_first = time.perf_counter() - t0
+    launches = tcam_match_banked_cuda.launches
+    check(tcam_match_cuda.launches == tcam_match_packed_cuda.launches == 0,
+          "the forest path launched no single-bank kernel")
+    check(launches == plan.n_groups,
+          f"banked kernel launched once per group ({launches} launches, "
+          f"{plan.n_groups} groups)")
+    check(np.array_equal(res.predictions, golden),
+          "forest predictions equal the trees' hard vote")
+    check(bool((res.n_survivors == 1).all()),
+          "one survivor per bank and query")
+    t0 = time.perf_counter()
+    again = ex.infer(Xte)
+    t_second = time.perf_counter() - t0
+    same_result(res, again, "forest mxu, second call")
+    log(json.dumps({"forest_infer": {
+        "engine": "mxu", "queries": len(Xte), "first_call_ms": t_first * 1e3,
+        "second_call_ms": t_second * 1e3,
+        "accuracy_vs_vote": float((res.predictions == golden).mean()),
+        "mean_active_evals_per_bank": float(res.active_evals.mean()),
+        "energy_per_dec_nj":
+            res.figures["aggregate"]["energy_per_dec_j"] * 1e9}}))
+    del ex, again
+
+    Xs = Xte[:n_slice]
+    want = ForestExecutor(forest, engine="mxu", device=dev,
+                          plan=plan).infer(Xs)
+    t0 = time.perf_counter()
+    banked = ForestExecutor(forest, engine="banked", device=dev,
+                            plan=plan).infer(Xs)
+    t_banked = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = forest_infer_ref(forest, Xs)
+    t_ref = time.perf_counter() - t0
+    same_result(want, banked, "forest mxu vs banked", skip=("engine",))
+    same_result(want, ref, "forest mxu vs ref", skip=("engine",))
+    log(f"forest slice of {len(Xs)}: banked {t_banked * 1e3:.1f} ms, ref "
+        f"(numpy oracle) {t_ref * 1e3:.1f} ms; every ForestResult field "
+        "equal to mxu's")
+
+    # -- the banked kernel at both group shapes -------------------------------
+    rng = np.random.default_rng(1)
+    cases = []
+    for gi, grp in enumerate(plan.groups):
+        km = np.array(grp.kmax0, copy=True)
+        for slot, bank_id in enumerate(grp.bank_ids):
+            lay = forest.banks[int(bank_id)].layout
+            offsets = rng.normal(0.0, 0.08, (lay.cells.shape[0], lay.n_cwd))
+            k = sa_kmax(lay, offsets)
+            km[slot, : k.shape[0], : k.shape[1]] = k
+        check(bool((km == -1).any() and (km == 0).any() and (km > 0).any()),
+              f"group {gi}: kmax holds -1, 0 and >0")
+        cells = grp.cells if gi else apply_saf(grp.cells, 0.01, 0.01, rng)
+        check(bool((cells == CELL_MM).any()) == (gi == 0),
+              f"group {gi}: CELL_MM cells only where faults were injected")
+        ops = prepare_banked(cells, grp.s, km, engine="mxu", device=dev)
+        x = torch.from_numpy(encode_group(forest, grp, Xte)).to(dev)
+        xb16, p0b16 = x.to(torch.bfloat16), ops.is0.to(torch.bfloat16)
+        cases.append({
+            "run": lambda x=x, o=ops: tcam_match_banked_cuda(
+                x, o.is0, o.is1, o.kmax, s=o.s),
+            "plain": lambda x=x, o=ops: tcam_match_banked_plain(
+                x, o.is0, o.is1, o.s, o.kmax),
+            "library": lambda a=xb16, b=p0b16: torch.bmm(a, b.transpose(1, 2)),
+            "inputs": (x, ops.is0, ops.is1, ops.kmax),
+            "ops_per_eval": 4 * grp.s, "op_peak": PEAK_INT8_TENSOR,
+            "shape": {"G": grp.n_banks, "B": x.shape[1], "R": grp.r_pad,
+                      "W": grp.width, "S": grp.s, "D": grp.d_pad,
+                      "stuck_faults": gi == 0},
+        })
+    rec = measure("tcam_match_banked", cases, launches, bw)
+    rec["library_call"] = ("bf16 torch.bmm (G,B,W)x(G,W,R) per group: "
+                           "products only")
+    del cases
+
+    # -- forest serving ---------------------------------------------------------
+    n = min(n_serve, len(Xte))
+    active = res.active_evals[:, :n].sum(axis=0)
+    energy = (active.astype(np.float64) * DEFAULT_HW.e_row
+              + forest.n_banks * DEFAULT_HW.e_mem)
+    serve = {}
+    for engine in ("mxu", "auto"):
+        tcam_match_banked_cuda.launches = 0
+        with TCAMServer(forest, config=ServeConfig(engine=engine,
+                                                   max_batch=256),
+                        device=dev) as srv:
+            t0 = time.perf_counter()
+            builds = srv.warmup()
+            t_warm = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            futs = srv.submit_many(Xte[:n])
+            got = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            stats = srv.metrics()
+        for f, arr in (("prediction", res.predictions[:n]),
+                       ("active_evals", active), ("energy_j", energy),
+                       ("n_survivors", np.full(n, forest.n_banks))):
+            check(np.array_equal([getattr(r, f) for r in got], arr),
+                  f"forest served ({engine}) {f} equals the executor's")
+        kernel_launches = tcam_match_banked_cuda.launches
+        check((kernel_launches > 0) == (engine == "mxu"),
+              f"forest serving on {engine} launched the banked kernel "
+              f"{kernel_launches} times")
+        cl = stats["compute_latency"]
+        serve[engine] = {
+            "resolved_engine": stats["engine"], "requests": n,
+            "warmup_builds": builds, "warmup_s": t_warm, "wall_s": wall,
+            "requests_per_s": n / wall, "batches": stats["batches"],
+            "mean_batch_fill": stats["mean_batch_fill"],
+            "compute_p50_ms": cl["p50_ms"], "compute_p99_ms": cl["p99_ms"],
+            "total_p50_ms": stats["total_latency"]["p50_ms"],
+            "total_p99_ms": stats["total_latency"]["p99_ms"],
+            "banked_launches": kernel_launches}
+    log(json.dumps({"forest_serve": serve}))
+    return rec, serve
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -110,7 +359,8 @@ def main() -> int:
     from repro_torch.dt import DATASETS, load_split
     from repro_torch.kernels import (build_all, pack_bits, sa_kmax,
                                      select_engine, tcam_infer,
-                                     tcam_match_cuda, tcam_match_packed_cuda,
+                                     tcam_match_banked_cuda, tcam_match_cuda,
+                                     tcam_match_packed_cuda,
                                      tcam_match_packed_plain, tcam_match_plain)
     from repro_torch.serve import ServeConfig, TCAMServer
 
@@ -159,6 +409,7 @@ def main() -> int:
 
     tcam_match_cuda.launches = 0
     tcam_match_packed_cuda.launches = 0
+    tcam_match_banked_cuda.launches = 0
     check(select_engine(lay.cells, lay.s, "auto") == "packed",
           "auto resolves to packed on ideal hardware")
     ideal = {}
@@ -212,62 +463,31 @@ def main() -> int:
                and (km_np > 0).any()), "kmax holds -1, 0 and >0")
     km = torch.from_numpy(km_np).to(dev)
     bw = peak_bw(name)
-    b_, w_ = x.shape
-    r_, d_ = km.shape
-    out_bytes = 2 * b_ * r_ * 4
-
-    def measure(kname, run, plain, inputs, ops_per_eval, op_peak, library):
-        got = run()
-        torch.cuda.synchronize()
-        want = plain()
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            check(torch.equal(g, w), f"{kname}: kernel == plain version")
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        evals_total = int(got[1].sum(dtype=torch.int64))
-        in_bytes = sum(t.numel() * t.element_size() for t in inputs)
-        t_bytes = (in_bytes + out_bytes) / bw * 1e3
-        t_ops = evals_total * ops_per_eval / op_peak * 1e3
-        rec = {
-            "name": kname, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{kname}.cu",
-            "replaces": {"tcam_match": "src/repro/kernels/tcam_match.py:38",
-                         "tcam_packed": "src/repro/kernels/tcam_packed.py:30"
-                         }[kname],
-            "launches": launches[kname],
-            "max_abs_err": err,
-            "ms": cuda_ms(run, reps=10, warmup=2),
-            "plain_ms": cuda_ms(plain, reps=3),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None if library is None else cuda_ms(library, 10, 2),
-            "bytes": in_bytes + out_bytes,
-            "evaluated_divisions": evals_total,
-            "shape": {"B": b_, "R": r_, "W": w_, "S": lay.s, "D": d_},
-        }
-        log(json.dumps(rec))
-        return rec
+    shape = {"B": x.shape[0], "R": km.shape[0], "W": x.shape[1], "S": lay.s,
+             "D": km.shape[1]}
 
     is0, is1 = bitplanes(lay.cells)
     xq = pack_bits(x)
     val = pack_bits(torch.from_numpy(is1).to(dev))
     care = pack_bits(torch.from_numpy(is0 | is1).to(dev))
     sw = lay.s // 32
-    packed = measure(
-        "tcam_packed",
-        lambda: tcam_match_packed_cuda(xq, val, care, km, s=lay.s),
-        lambda: tcam_match_packed_plain(xq, val, care, lay.s, km),
-        (xq, val, care, km), 3 * sw, PEAK_CUDA_CORE, None)
+    packed = measure("tcam_packed", [{
+        "run": lambda: tcam_match_packed_cuda(xq, val, care, km, s=lay.s),
+        "plain": lambda: tcam_match_packed_plain(xq, val, care, lay.s, km),
+        "library": None, "inputs": (xq, val, care, km),
+        "ops_per_eval": 3 * sw, "op_peak": PEAK_CUDA_CORE, "shape": shape,
+    }], launches["tcam_packed"], bw)
     del val, care
 
     f0, f1 = (torch.from_numpy(p).to(dev) for p in bitplanes(faulted))
     xb16, f0b16 = x.to(torch.bfloat16), f0.to(torch.bfloat16)
-    bitplane = measure(
-        "tcam_match",
-        lambda: tcam_match_cuda(x, f0, f1, km, s=lay.s),
-        lambda: tcam_match_plain(x, f0, f1, lay.s, km),
-        (x, f0, f1, km), 4 * lay.s, PEAK_INT8_TENSOR,
-        lambda: torch.matmul(xb16, f0b16.T))
+    bitplane = measure("tcam_match", [{
+        "run": lambda: tcam_match_cuda(x, f0, f1, km, s=lay.s),
+        "plain": lambda: tcam_match_plain(x, f0, f1, lay.s, km),
+        "library": lambda: torch.matmul(xb16, f0b16.T),
+        "inputs": (x, f0, f1, km), "ops_per_eval": 4 * lay.s,
+        "op_peak": PEAK_INT8_TENSOR, "shape": shape,
+    }], launches["tcam_match"], bw)
     bitplane["library_call"] = "bf16 torch.matmul (B,W)x(W,R): products only"
     del xb16, f0b16, f0, f1
 
@@ -307,9 +527,14 @@ def main() -> int:
                   "total_p99_ms": stats["total_latency"]["p99_ms"],
                   "packed_launches": tcam_match_packed_cuda.launches}}))
 
-    # -- 6. result ---------------------------------------------------------------
+    del x, km
+
+    # -- 6. forest ----------------------------------------------------------------
+    banked, _ = forest_phase(dev, bw)
+
+    # -- 7. result ---------------------------------------------------------------
     log(smi)
-    log(json.dumps({"kernels": [bitplane, packed]}))
+    log(json.dumps({"kernels": [bitplane, packed, banked]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -13,6 +13,13 @@ Keys: ``tree__*`` (the fitted tree), ``tbl__*`` (the reduced rule table),
 ``lay__*`` (the tiled layout; ``lay__dims`` holds s, n_rwd, n_cwd, n_rows,
 width, n_classes).  ``prefix`` selects one model inside a blob that holds
 several (a forest stores bank ``i`` under ``b{i}__``).
+
+``forest_from_arrays`` rebuilds a ``CompiledForest`` from a forest's blob:
+``f__n_banks``, ``f__n_features``, ``f__n_classes``, ``f__classes``,
+``f__cast_f32`` and ``f__s``, then each bank's compiled tree under
+``b{i}__`` with its soft-vote table ``b{i}__proba`` where it has one.  The
+vote rule is not in the blob (the registry keeps it in its index), so the
+caller names it.
 """
 from __future__ import annotations
 
@@ -25,8 +32,9 @@ from .core.compiler import CompiledDT
 from .core.lut import TernaryLUT
 from .core.reduce import RuleTable
 from .core.synth import TCAMLayout
+from .forest.compiler import CompiledForest, ForestBank
 
-__all__ = ["compiled_from_arrays"]
+__all__ = ["compiled_from_arrays", "forest_from_arrays"]
 
 
 def compiled_from_arrays(z: Mapping[str, np.ndarray],
@@ -61,3 +69,24 @@ def compiled_from_arrays(z: Mapping[str, np.ndarray],
         n_rows=n_rows, width=width, n_classes=n_classes,
     )
     return CompiledDT(tree=tree, table=table, lut=lut, layout=layout)
+
+
+def forest_from_arrays(z: Mapping[str, np.ndarray],
+                       vote: str) -> CompiledForest:
+    """Rebuild the compiled forest stored in ``z`` with vote rule ``vote``."""
+    banks = [
+        ForestBank(
+            compiled=compiled_from_arrays(z, f"b{i}__"),
+            proba=z[f"b{i}__proba"] if f"b{i}__proba" in z else None,
+        )
+        for i in range(int(z["f__n_banks"]))
+    ]
+    return CompiledForest(
+        banks=banks,
+        n_features=int(z["f__n_features"]),
+        n_classes=int(z["f__n_classes"]),
+        classes=z["f__classes"],
+        vote=vote,
+        cast_f32=bool(int(z["f__cast_f32"])),
+        s=int(z["f__s"]),
+    )

@@ -19,9 +19,11 @@ from .encode import encode_inputs, encode_table, span_code, unary_code
 from .energy import (
     DEFAULT_HW,
     HardwareParams,
+    bank_figures,
     choose_tile_size,
     dynamic_range,
     f_max,
+    forest_figures,
     max_cells_per_row,
     t_cwd,
     t_opt,
@@ -47,7 +49,8 @@ __all__ = [
     "FeatureMismatch", "check_feature_count",
     "encode_inputs", "encode_table", "span_code", "unary_code",
     "DEFAULT_HW", "HardwareParams", "choose_tile_size", "dynamic_range",
-    "f_max", "max_cells_per_row", "t_cwd", "t_opt",
+    "f_max", "max_cells_per_row", "t_cwd", "t_opt", "bank_figures",
+    "forest_figures",
     "CELL_0", "CELL_1", "CELL_MM", "CELL_X", "TernaryLUT", "bitplanes",
     "IDEAL", "NonIdealSpec", "SAFMask", "apply_saf", "apply_saf_mask",
     "noisy_inputs", "sample_saf", "DriftSpec",

@@ -20,7 +20,8 @@ import dataclasses
 import math
 
 __all__ = ["HardwareParams", "DEFAULT_HW", "dynamic_range", "max_cells_per_row",
-           "t_opt", "t_cwd", "f_max", "choose_tile_size", "TABLE_IV"]
+           "t_opt", "t_cwd", "f_max", "choose_tile_size", "TABLE_IV",
+           "bank_figures", "forest_figures"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,3 +145,86 @@ def t_cwd(s: int, hw: HardwareParams = DEFAULT_HW) -> float:
 def f_max(s: int, hw: HardwareParams = DEFAULT_HW) -> float:
     """Eqn 10: operating frequency 1 / max(T_cwd, T_mem)."""
     return 1.0 / max(t_cwd(s, hw), hw.t_mem)
+
+
+# ---------------------------------------------------------------------------
+# Multi-bank (forest) figures
+# ---------------------------------------------------------------------------
+
+def bank_figures(
+    layout,
+    hw: HardwareParams = DEFAULT_HW,
+    *,
+    mean_active_evals: float | None = None,
+) -> dict:
+    """Per-bank energy / latency / area figures for one ``TCAMLayout``.
+
+    Duck-typed: ``layout`` only needs ``s``, ``n_cwd``, ``n_rows`` and
+    ``area_m2``.  ``mean_active_evals`` (mean N_a per decision, from the
+    simulator/kernels' activity trace) enables the energy-per-decision figure;
+    without it the energy entry is omitted.
+    """
+    s, n_cwd = int(layout.s), int(layout.n_cwd)
+    fm = f_max(s, hw)
+    fig = {
+        "s": s,
+        "n_cwd": n_cwd,
+        "rows": int(layout.n_rows),
+        "f_max_hz": fm,
+        "latency_s": n_cwd * t_cwd(s, hw) + hw.t_mem,
+        "decs_seq": fm / n_cwd,
+        "decs_pipe": fm / hw.pipeline_ii_cycles,
+        "area_m2": float(area(hw) if callable(area := layout.area_m2) else area),
+    }
+    if mean_active_evals is not None:
+        fig["energy_per_dec_j"] = (
+            float(mean_active_evals) * hw.e_row + hw.e_mem
+        )
+    return fig
+
+
+def forest_figures(
+    layouts,
+    hw: HardwareParams = DEFAULT_HW,
+    *,
+    mean_active_evals=None,
+) -> dict:
+    """Aggregate pipelined figures for a multi-bank (ensemble) deployment.
+
+    ``layouts`` is a sequence of ``TCAMLayout``-likes (one per bank);
+    ``mean_active_evals``, when given, is a matching sequence of per-bank mean
+    N_a values.  Returns ``{"banks": [per-bank dicts], "aggregate": {...}}``.
+
+    Aggregate semantics: banks run concurrently and each sustains its own
+    pipelined rate, so *aggregate* dec/s is the sum over banks (raw row-match
+    throughput of the chip — monotone in bank count), while the *ensemble*
+    rate (complete forest decisions, which need every bank's vote) is the
+    slowest bank's rate and the ensemble latency is the slowest bank's
+    latency.  Area and energy per ensemble decision sum across banks.
+    """
+    layouts = list(layouts)
+    if not layouts:
+        raise ValueError("forest_figures needs at least one bank layout")
+    if mean_active_evals is None:
+        mean_active_evals = [None] * len(layouts)
+    else:
+        mean_active_evals = list(mean_active_evals)
+        if len(mean_active_evals) != len(layouts):
+            raise ValueError(
+                f"mean_active_evals has {len(mean_active_evals)} entries for "
+                f"{len(layouts)} banks"
+            )
+    banks = [
+        bank_figures(lay, hw, mean_active_evals=ev)
+        for lay, ev in zip(layouts, mean_active_evals)
+    ]
+    agg = {
+        "n_banks": len(banks),
+        "decs_pipe": sum(b["decs_pipe"] for b in banks),
+        "ensemble_decs_pipe": min(b["decs_pipe"] for b in banks),
+        "latency_s": max(b["latency_s"] for b in banks),
+        "area_m2": sum(b["area_m2"] for b in banks),
+    }
+    if all("energy_per_dec_j" in b for b in banks):
+        agg["energy_per_dec_j"] = sum(b["energy_per_dec_j"] for b in banks)
+    return {"banks": banks, "aggregate": agg}

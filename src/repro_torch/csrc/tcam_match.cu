@@ -12,6 +12,17 @@
 // evaluated in division d iff it matched every earlier division.  Outputs
 // survive[b, r] and evals[b, r], both int32, row-major (B, R).
 //
+// Banked entry (dt2cam_tcam_match_banked) replaces the forest's launch of the
+// same TPU kernel, src/repro/kernels/banked.py `tcam_match_banked` (engine
+// "mxu": `jax.vmap(tcam_match_pallas)`, one pallas_call over G same-shape
+// banks).  blockIdx.z is the bank: each block offsets every operand by its
+// bank's slab (x by g*B*W, the planes by g*R*W, kmax by g*R*D, the outputs
+// by g*B*R; all in size_t, since G*B*R passes 2^31 at forest scale).  The
+// single-bank entry is the G = 1 launch of the same kernels.  Stacking pad
+// rows carry kmax = -1 and die in division 0 with evals 1; pad divisions
+// are all-don't-care and match.  Evals are not clamped to a bank's real
+// division count: the caller does that.
+//
 // What bounds it on this card: bytes.  The two (B, R) int32 outputs are
 // 8 bytes per (b, r) pair, 825 MB at the Give Me Some Credit layout
 // (B = 12027, R = 8576), against 43 MB per uint8 plane; the arithmetic per
@@ -76,9 +87,14 @@ tcam_match_kernel(const uint8_t* __restrict__ x,
   if (r >= R) return;
   const int b0 = blockIdx.y * kBatchPerBlock;
   const int nb = min(kBatchPerBlock, B - b0);
-  const uint8_t* p0 = is0 + static_cast<size_t>(r) * W;
-  const uint8_t* p1 = is1 + static_cast<size_t>(r) * W;
-  const int32_t* kr = kmax + static_cast<size_t>(r) * D;
+  const size_t g = blockIdx.z;
+  x += g * B * W;
+  survive += g * B * R;
+  evals += g * B * R;
+  const size_t row = g * R + r;
+  const uint8_t* p0 = is0 + row * W;
+  const uint8_t* p1 = is1 + row * W;
+  const int32_t* kr = kmax + row * D;
 
   uint4 a0[kChunks], c0[kChunks];
 #pragma unroll
@@ -125,9 +141,14 @@ tcam_match_kernel_any(const uint8_t* __restrict__ x,
   const int D = W / S;
   const int b0 = blockIdx.y * kBatchPerBlock;
   const int nb = min(kBatchPerBlock, B - b0);
-  const uint8_t* p0 = is0 + static_cast<size_t>(r) * W;
-  const uint8_t* p1 = is1 + static_cast<size_t>(r) * W;
-  const int32_t* kr = kmax + static_cast<size_t>(r) * D;
+  const size_t g = blockIdx.z;
+  x += g * B * W;
+  survive += g * B * R;
+  evals += g * B * R;
+  const size_t row = g * R + r;
+  const uint8_t* p0 = is0 + row * W;
+  const uint8_t* p1 = is1 + row * W;
+  const int32_t* kr = kmax + row * D;
   for (int i = 0; i < nb; ++i) {
     const uint8_t* xb = x + static_cast<size_t>(b0 + i) * W;
     int ev = 0;
@@ -159,18 +180,20 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// x (B, W) and is0, is1 (R, W) uint8 in {0,1}; kmax (R, W/S) int32;
-// survive and evals (B, R) int32 outputs.  All row-major and contiguous.
-// Launches on `stream`; returns cudaGetLastError().
-extern "C" int dt2cam_tcam_match(const void* x, const void* is0,
-                                 const void* is1, const void* kmax,
-                                 void* survive, void* evals, int B, int R,
-                                 int W, int S, void* stream) {
-  if (B <= 0 || R <= 0) return 0;
+// G banks of the same shape: x (G, B, W) and is0, is1 (G, R, W) uint8 in
+// {0,1}; kmax (G, R, W/S) int32; survive and evals (G, B, R) int32 outputs.
+// All row-major and contiguous.  Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int dt2cam_tcam_match_banked(const void* x, const void* is0,
+                                        const void* is1, const void* kmax,
+                                        void* survive, void* evals, int G,
+                                        int B, int R, int W, int S,
+                                        void* stream) {
+  if (G <= 0 || B <= 0 || R <= 0) return 0;
   if (S <= 0 || W <= 0 || W % S != 0) return cudaErrorInvalidValue;
   const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock,
-                  (B + kBatchPerBlock - 1) / kBatchPerBlock);
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+                  (B + kBatchPerBlock - 1) / kBatchPerBlock, G);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
   auto* s = static_cast<cudaStream_t>(stream);
   auto* xb = static_cast<const uint8_t*>(x);
   auto* p0 = static_cast<const uint8_t*>(is0);
@@ -178,6 +201,8 @@ extern "C" int dt2cam_tcam_match(const void* x, const void* is0,
   auto* km = static_cast<const int32_t*>(kmax);
   auto* sv = static_cast<int32_t*>(survive);
   auto* ev = static_cast<int32_t*>(evals);
+  // Every bank slab starts a multiple of W bytes past an aligned base, so
+  // W % 16 == 0 keeps each slab's rows 16-byte aligned too.
   const bool vec = W % 16 == 0 && aligned16(x) && aligned16(is0) && aligned16(is1);
   switch (vec ? S : 0) {
     case 16: launch<16>(grid, s, xb, p0, p1, km, sv, ev, B, R, W); break;
@@ -189,6 +214,17 @@ extern "C" int dt2cam_tcam_match(const void* x, const void* is0,
                                                           ev, B, R, W, S);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One bank: x (B, W) and is0, is1 (R, W) uint8 in {0,1}; kmax (R, W/S)
+// int32; survive and evals (B, R) int32 outputs.  The G = 1 launch of the
+// banked entry.
+extern "C" int dt2cam_tcam_match(const void* x, const void* is0,
+                                 const void* is1, const void* kmax,
+                                 void* survive, void* evals, int B, int R,
+                                 int W, int S, void* stream) {
+  return dt2cam_tcam_match_banked(x, is0, is1, kmax, survive, evals, 1, B, R,
+                                  W, S, stream);
 }
 
 extern "C" const char* dt2cam_error_string(int code) {

@@ -1,0 +1,126 @@
+"""Sharding plan: stack same-shape banks into batched execution groups.
+
+Each bank is an independent tiled TCAM, but banks whose padded shapes agree
+can be evaluated by ONE batched kernel invocation over a leading bank axis
+(``kernels.banked``).  ``plan_forest`` buckets every bank's physical
+(rows, divisions) up a power-of-two ladder — the same ``BucketPolicy``
+machinery the serving engine uses for batch shapes — and stacks banks with
+equal bucketed shape into a ``PlanGroup``:
+
+* padding rows beyond a bank's physical array carry ``kmax = -1`` (always
+  mismatch: they can neither survive nor disturb the vote);
+* padding divisions are all-CELL_X (trivially match), and the executor
+  corrects the activity counts with ``min(evals, d_real)`` per bank —
+  safe because no row can die inside a fully-masked division.
+
+The plan is content-addressed (``plan_id``) so compiled batch functions can
+be cached per (plan, engine, batch-bucket), mirroring the serving engine's
+compile-cache discipline.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+
+import numpy as np
+
+from ..core.lut import CELL_X
+
+__all__ = ["PlanGroup", "ForestPlan", "plan_forest"]
+
+
+@dataclasses.dataclass
+class PlanGroup:
+    """Banks stacked to one padded shape, executable in one invocation."""
+
+    bank_ids: np.ndarray   # (G,) int64 — indices into the forest's bank list
+    s: int
+    r_pad: int             # padded physical rows per bank
+    d_pad: int             # padded column divisions per bank
+    cells: np.ndarray      # (G, r_pad, d_pad*s) int8 stacked cell grids
+    kmax0: np.ndarray      # (G, r_pad, d_pad) int32 ideal kmax (-1 pad rows)
+    rows: np.ndarray       # (G,) int64 — real physical rows per bank
+    d_real: np.ndarray     # (G,) int64 — real divisions per bank
+
+    @property
+    def n_banks(self) -> int:
+        return len(self.bank_ids)
+
+    @property
+    def width(self) -> int:
+        return self.d_pad * self.s
+
+
+@dataclasses.dataclass
+class ForestPlan:
+    groups: list[PlanGroup]
+    n_banks: int
+    plan_id: str
+
+    @property
+    def n_groups(self) -> int:
+        return len(self.groups)
+
+
+def _pow2_bucket(n: int, min_bucket: int, max_cap: int):
+    """BucketPolicy ladder covering n: min_bucket, 2·min_bucket, ... >= n."""
+    # lazy import: the serve package imports its engine, which imports this
+    # package, so a module-level import here would be circular
+    from ..serve.batching import BucketPolicy
+
+    cap = max(min_bucket, max_cap)
+    top = min_bucket
+    while top < cap:
+        top *= 2
+    return BucketPolicy(max_batch=top, min_bucket=min_bucket).bucket_for(n)
+
+
+def plan_forest(layouts_or_forest) -> ForestPlan:
+    """Build the sharded execution plan for a forest (or a bare list of
+    ``TCAMLayout``-likes, e.g. the serving engine's per-bank faulted grids).
+    """
+    layouts = getattr(layouts_or_forest, "layouts", layouts_or_forest)
+    layouts = list(layouts)
+    if not layouts:
+        raise ValueError("plan_forest needs at least one bank layout")
+    s = int(layouts[0].s)
+    if any(int(l.s) != s for l in layouts):
+        raise ValueError("all banks must share the same tile size S")
+
+    rows = np.array([l.cells.shape[0] for l in layouts], np.int64)
+    divs = np.array([int(l.n_cwd) for l in layouts], np.int64)
+    max_rows, max_divs = int(rows.max()), int(divs.max())
+
+    keys: dict[tuple[int, int], list[int]] = {}
+    for i in range(len(layouts)):
+        r_pad = _pow2_bucket(int(rows[i]), s, max_rows)
+        d_pad = _pow2_bucket(int(divs[i]), 1, max_divs)
+        keys.setdefault((r_pad, d_pad), []).append(i)
+
+    digest = hashlib.sha1()
+    groups = []
+    for (r_pad, d_pad), ids in sorted(keys.items()):
+        g = len(ids)
+        w_pad = d_pad * s
+        cells = np.full((g, r_pad, w_pad), CELL_X, dtype=np.int8)
+        kmax0 = np.zeros((g, r_pad, d_pad), dtype=np.int32)
+        for slot, i in enumerate(ids):
+            lay = layouts[i]
+            r, w = lay.cells.shape
+            cells[slot, :r, :w] = lay.cells
+            kmax0[slot, r:, :] = -1  # stacking pad rows: always mismatch
+        groups.append(PlanGroup(
+            bank_ids=np.asarray(ids, np.int64),
+            s=s, r_pad=r_pad, d_pad=d_pad,
+            cells=cells, kmax0=kmax0,
+            rows=rows[ids], d_real=divs[ids],
+        ))
+        digest.update(cells.tobytes())
+        digest.update(np.asarray(ids, np.int64).tobytes())
+    for lay in layouts:
+        digest.update(lay.classes.tobytes())
+    return ForestPlan(
+        groups=groups,
+        n_banks=len(layouts),
+        plan_id=digest.hexdigest()[:12],
+    )

@@ -19,8 +19,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNEL_SOURCES", "build_all", "check_match_args", "launch_match",
-           "load_kernel"]
+__all__ = ["KERNEL_SOURCES", "build_all", "check_banked_args",
+           "check_match_args", "launch_banked", "launch_match", "load_kernel"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -128,23 +128,63 @@ def check_match_args(x, a, b, kmax, *, dtype: torch.dtype, names: tuple,
     return dev
 
 
-def launch_match(fn_name: str, lib_name: str, x, a, b, kmax, width: int,
-                 division: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Allocate the (B, R) outputs and launch one match kernel on the
-    current stream; raise with CUDA's message if the launch failed."""
-    n_b, n_r = x.shape[0], a.shape[0]
-    survive = torch.empty((n_b, n_r), dtype=torch.int32, device=x.device)
+def check_banked_args(x, is0, is1, kmax, s: int) -> torch.device:
+    """Argument checks of the banked match wrapper: x (G, B, W), is0 and
+    is1 (G, R, W) uint8, kmax (G, R, W // s) int32; returns the device."""
+    dev = x.device
+    for t, n in zip((x, is0, is1), ("xbits", "is0", "is1")):
+        _check(t, n, torch.uint8, 3, dev)
+    _check(kmax, "kmax", torch.int32, 3, dev)
+    (g, _, w), (g_p, r, w_p) = x.shape, is0.shape
+    if (g_p, w_p) != (g, w) or is1.shape != is0.shape:
+        raise ValueError(
+            f"bank or width mismatch: xbits {tuple(x.shape)}, is0 "
+            f"{tuple(is0.shape)}, is1 {tuple(is1.shape)}"
+        )
+    if s <= 0 or w % s:
+        raise ValueError(f"width {w} is not a multiple of {s}")
+    if tuple(kmax.shape) != (g, r, w // s):
+        raise ValueError(f"kmax shape {tuple(kmax.shape)} != {(g, r, w // s)}")
+    return dev
+
+
+def _launch(fn_name: str, lib_name: str, out_shape: tuple, ptrs: tuple,
+            ints: tuple, device: torch.device
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Allocate the two int32 outputs and launch ``fn_name(*ptrs, survive,
+    evals, *ints, stream)`` on the current stream; raise with CUDA's
+    message if the launch failed."""
+    survive = torch.empty(out_shape, dtype=torch.int32, device=device)
     evals = torch.empty_like(survive)
     lib = load_kernel(lib_name)
     fn = getattr(lib, fn_name)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * (len(ptrs) + 2)
+                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), kmax.data_ptr(),
-            survive.data_ptr(), evals.data_ptr(), n_b, n_r, width, division,
-            stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(*ptrs, survive.data_ptr(), evals.data_ptr(), *ints, stream)
     if rc != 0:
         lib.dt2cam_error_string.restype = ctypes.c_char_p
         msg = lib.dt2cam_error_string(ctypes.c_int(rc)).decode()
         raise RuntimeError(f"{fn_name} launch failed: {msg} ({rc})")
     return survive, evals
+
+
+def launch_match(fn_name: str, lib_name: str, x, a, b, kmax, width: int,
+                 division: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch one single-bank match kernel; (B, R) int32 outputs."""
+    n_b, n_r = x.shape[0], a.shape[0]
+    return _launch(fn_name, lib_name, (n_b, n_r),
+                   (x.data_ptr(), a.data_ptr(), b.data_ptr(), kmax.data_ptr()),
+                   (n_b, n_r, width, division), x.device)
+
+
+def launch_banked(x, is0, is1, kmax, s: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the bitplane kernel over G banks (grid axis z); (G, B, R)
+    int32 outputs."""
+    (g, n_b, w), n_r = x.shape, is0.shape[1]
+    return _launch("dt2cam_tcam_match_banked", "tcam_match", (g, n_b, n_r),
+                   (x.data_ptr(), is0.data_ptr(), is1.data_ptr(),
+                    kmax.data_ptr()),
+                   (g, n_b, n_r, w, s), x.device)

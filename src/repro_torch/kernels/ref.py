@@ -20,9 +20,10 @@ Returns:
   evals   (B, R) int32 — number of divisions the row was evaluated in
                           (∈ [1, D]; this drives the energy model).
 
-Both versions walk the divisions in order and carry the (B, R) ``active``
-state, so they never hold a (B, R, D) array: at the Give Me Some Credit
-layout that would be about 16 GB.
+Every version walks the divisions in order and carries the (B, R)
+``active`` state (``(G, B, R)`` for the banked one), so none holds a
+(B, R, D) array: at the Give Me Some Credit layout that would be about
+16 GB, and at the credit forest's first group, 63 GB.
 
 Packed words are int32 bit patterns (PyTorch has no unsigned shifts on the
 CPU): bit ``i`` of word ``j`` is column ``32*j + i``.
@@ -33,20 +34,28 @@ from typing import Optional
 
 import torch
 
-__all__ = ["tcam_match_ref", "tcam_match_packed_ref", "pack_bits", "popcount32"]
+__all__ = ["tcam_match_ref", "tcam_match_banked_ref", "tcam_match_packed_ref",
+           "pack_bits", "popcount32"]
 
 
-def _carry(mism_of, b: int, r: int, d: int, kmax: Optional[torch.Tensor],
+def _carry(mism_of, shape: tuple, d: int, limit_of,
            device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """Selective-precharge carry over divisions; ``mism_of(j)`` gives the
-    (B, R) mismatch counts of division j."""
-    active = torch.ones((b, r), dtype=torch.int32, device=device)
-    evals = torch.zeros((b, r), dtype=torch.int32, device=device)
+    mismatch counts of division j and ``limit_of(j)`` its tolerance, both
+    broadcastable to ``shape``."""
+    active = torch.ones(shape, dtype=torch.int32, device=device)
+    evals = torch.zeros(shape, dtype=torch.int32, device=device)
     for j in range(d):
         evals += active
-        limit = 0 if kmax is None else kmax[:, j].to(torch.int32)[None, :]
-        active *= (mism_of(j) <= limit).to(torch.int32)
+        active *= (mism_of(j) <= limit_of(j)).to(torch.int32)
     return active, evals
+
+
+def _limit_2d(kmax: Optional[torch.Tensor]):
+    """Division j's tolerance of an (R, D) kmax as a (1, R) row."""
+    if kmax is None:
+        return lambda j: 0
+    return lambda j: kmax[:, j].to(torch.int32)[None, :]
 
 
 def tcam_match_ref(
@@ -72,7 +81,38 @@ def tcam_match_ref(
         m = xd @ p0[:, cols].T + (1.0 - xd) @ p1[:, cols].T
         return m.to(torch.int32)
 
-    return _carry(mism, b, r, w // s, kmax, xbits.device)
+    return _carry(mism, (b, r), w // s, _limit_2d(kmax), xbits.device)
+
+
+def tcam_match_banked_ref(
+    xbits: torch.Tensor,   # (G, B, W) {0,1}: each bank's own search words
+    is0: torch.Tensor,     # (G, R, W)
+    is1: torch.Tensor,     # (G, R, W)
+    s: int,
+    kmax: Optional[torch.Tensor] = None,   # (G, R, D) int32, default zeros
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Banked bitplane oracle: G same-shape banks at once, (survive, evals)
+    both (G, B, R) int32.  Per division two batched float32 products (exact:
+    counts <= S < 2^24) and the same (G, B, R) carry as the single bank; with
+    one division every row is evaluated once (evals all 1)."""
+    g, b, w = xbits.shape
+    r = is0.shape[1]
+    if w % s:
+        raise ValueError(f"width {w} is not a multiple of S={s}")
+    x = xbits.to(torch.float32)
+    p0 = is0.to(torch.float32)
+    p1 = is1.to(torch.float32)
+
+    def mism(j: int) -> torch.Tensor:
+        cols = slice(j * s, (j + 1) * s)
+        xd = x[:, :, cols]
+        m = torch.bmm(xd, p0[:, :, cols].transpose(1, 2))
+        return m.baddbmm_(1.0 - xd, p1[:, :, cols].transpose(1, 2))
+
+    def limit(j: int):
+        return 0 if kmax is None else kmax[:, None, :, j].to(torch.int32)
+
+    return _carry(mism, (g, b, r), w // s, limit, xbits.device)
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -128,4 +168,5 @@ def tcam_match_packed_ref(
             m += popcount32(diff)
         return m
 
-    return _carry(mism, b, r, w32 // sw, kmax, xpacked.device)
+    return _carry(mism, (b, r), w32 // sw, _limit_2d(kmax),
+                  xpacked.device)

@@ -1,4 +1,4 @@
-"""Serving engine for compiled DT2CAM models on the GPU (single tree).
+"""Serving engine for compiled DT2CAM models on the GPU (single tree or forest).
 
     >>> from repro_torch.serve import TCAMServer
     >>> with TCAMServer(model.compiled) as server:

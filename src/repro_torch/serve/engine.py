@@ -1,4 +1,4 @@
-"""Batched streaming TCAM inference server on the GPU (single tree).
+"""Batched streaming TCAM inference server on the GPU (single tree or forest).
 
 ``TCAMServer`` turns a compiled DT2CAM model into a serving engine on the
 CUDA match kernels:
@@ -29,10 +29,18 @@ per-request queueing deadlines (``DeadlineExceeded``) and retry-with-backoff
 for transient compute failures (``ComputeFailed`` after the budget).  Every
 submitted Future resolves — with a result or a typed error.
 
-Not in this slice (they raise ``NotImplementedError``): forest mode, the
-periodic canary and its circuit-breaker ladder, BIST and spare-row repair,
-drift and scrub, and shadow stage/promote/rollback.  ``ROADMAP.md`` lists
-them as the port's later slices.
+Forest mode: constructed with a ``forest.CompiledForest`` the server
+shards the batch path across TCAM banks — per-group banked matches
+('banked' = PyTorch ops, the default for 'auto'; 'mxu' = the bitplane CUDA
+kernel with a bank grid axis; 'ref' = a per-bank loop over the oracle),
+pipelined across groups, each bank with its own stuck faults and SA
+offsets, and one ensemble vote per request.  ``disable_bank`` drops a bank
+out of the vote and its divisor.
+
+Not in this slice (they raise ``NotImplementedError``): the periodic canary
+and its circuit-breaker ladder, BIST and spare-row repair (single tree and
+forest), ``health``, drift and scrub, and shadow stage/promote/rollback.
+``ROADMAP.md`` lists them as the port's later slices.
 
 Run ``background=True`` (default) for a worker thread + Future-based
 completion, or ``background=False`` for deterministic single-threaded tests
@@ -46,14 +54,14 @@ import threading
 import time
 import warnings
 from concurrent.futures import Future
-from typing import Callable, Optional, Sequence
+from typing import TYPE_CHECKING, Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..core.compiler import CompiledDT, FeatureMismatch
 from ..core.encode import encode_inputs
-from ..core.energy import DEFAULT_HW, HardwareParams, f_max
+from ..core.energy import DEFAULT_HW, HardwareParams, f_max, forest_figures
 from ..core.lut import CELL_X
 from ..core.nonideal import IDEAL, NonIdealSpec, apply_saf_mask, sample_saf
 from ..device import DeviceLike, resolve_device
@@ -65,12 +73,13 @@ from .cache import CompileCache
 from .errors import ComputeFailed, DeadlineExceeded, Rejected
 from .metrics import ServeMetrics
 
+if TYPE_CHECKING:
+    from ..forest.compiler import CompiledForest
+
 __all__ = ["RequestResult", "ServeConfig", "TCAMServer"]
 
 _RELIABILITY_SLICE = ("ROADMAP.md Queue A, 'Reliability, drift and lifecycle "
                       "on the torch server'")
-_FOREST_SLICE = ("ROADMAP.md Queue A, 'kernels/banked.py' and "
-                 "'forest/executor.py'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +89,8 @@ class ServeConfig:
     max_batch: int = 256          # flush as soon as this many are pending
     max_delay_s: float = 0.002    # oldest-request queueing deadline
     min_bucket: int = 8           # smallest padded batch shape
-    engine: str = "auto"          # 'auto' | 'mxu' | 'packed' | 'ref'
+    engine: str = "auto"          # 'auto' | 'mxu' | 'packed' | 'ref';
+                                  # forests: 'auto' | 'banked' | 'mxu' | 'ref'
     background: bool = True       # worker thread vs explicit pump()/drain()
     # -- serving protections ----------------------------------------------
     max_queue: Optional[int] = None    # admission control: shed when this
@@ -134,7 +144,7 @@ class TCAMServer:
 
     def __init__(
         self,
-        compiled: CompiledDT,
+        compiled: Union[CompiledDT, "CompiledForest"],
         *,
         hw: HardwareParams = DEFAULT_HW,
         nonideal: NonIdealSpec = IDEAL,
@@ -143,9 +153,13 @@ class TCAMServer:
         clock: Callable[[], float] = time.perf_counter,
         device: DeviceLike = None,
     ) -> None:
-        if hasattr(compiled, "banks"):
+        # multi-bank (forest) mode: a CompiledForest shards the serving path
+        # across banks (duck-typed, as the JAX package does)
+        self._forest = compiled if hasattr(compiled, "banks") else None
+        if self._forest is not None and nonideal.has_drift:
             raise NotImplementedError(
-                f"forest serving is not ported yet: {_FOREST_SLICE}"
+                "drift modelling is single-model only for now; model "
+                "bank drift with per-bank TCAMServer instances"
             )
         if nonideal.has_drift:
             raise NotImplementedError(
@@ -163,8 +177,13 @@ class TCAMServer:
         self._clock = clock
         self._rng = rng or np.random.default_rng(0)
         self.metrics_store = ServeMetrics()
-        self._operands: dict[str, MatchOperands] = {}
-        self._init_single_state(compiled, nonideal)
+        # device operands per engine (single tree) or per "engine:g<i>"
+        # plan group (forest), shared by every bucket's batch function
+        self._operands: dict = {}
+        if self._forest is not None:
+            self._init_forest_state(nonideal)
+        else:
+            self._init_single_state(compiled, nonideal)
 
         self.policy = BucketPolicy(
             max_batch=config.max_batch, min_bucket=config.min_bucket
@@ -174,10 +193,11 @@ class TCAMServer:
         self._model_lock = threading.RLock()
 
         # the canary is drawn here (its rng draws are part of the serving
-        # contract); running it periodically is a later slice
+        # contract); running it periodically is a later slice.  Forest mode
+        # has no single golden layout and draws none, as in the JAX package
         self._canary: Optional[CanaryProbe] = None
         n_canary = min(config.canary_size, config.max_batch)
-        if n_canary > 0:
+        if n_canary > 0 and self._forest is None:
             self._canary = make_canary(compiled.layout, n_canary, self._rng)
         # test/chaos seam: called with the batch's feature matrix right
         # before kernel dispatch; raising simulates a transient device fault
@@ -226,8 +246,66 @@ class TCAMServer:
             self._kmax = sa_kmax(layout, offsets, self._hw)
         self.engine = self._resolve_engine(self._config.engine)
 
+    def _init_forest_state(self, nonideal: NonIdealSpec) -> None:
+        """Forest mode: every bank is its own physical array with its own
+        sampled stuck-fault mask and SA offsets, drawn bank by bank in the
+        JAX package's order (all masks, then all offsets); a defective bank
+        degrades the ensemble vote instead of taking down the chip."""
+        forest = self._forest
+        self._n_features = forest.n_features
+        n = forest.n_banks
+        self._f_intent = [np.array(b.layout.cells, copy=True)
+                          for b in forest.banks]
+        self._f_layouts = []
+        for i, bank in enumerate(forest.banks):
+            lay = bank.layout
+            if nonideal.has_saf:
+                mask = sample_saf(
+                    self._f_intent[i].shape,
+                    nonideal.p_sa0, nonideal.p_sa1, self._rng,
+                )
+                faulted = apply_saf_mask(self._f_intent[i], mask)
+                faulted[:, 1 + lay.width:] = CELL_X
+                lay = dataclasses.replace(lay, cells=faulted)
+            self._f_layouts.append(lay)
+        self._f_kmax_banks: list[Optional[np.ndarray]] = [None] * n
+        if nonideal.sa_sigma > 0:
+            for i, lay in enumerate(self._f_layouts):
+                offsets = self._rng.normal(
+                    0.0, nonideal.sa_sigma,
+                    size=(lay.cells.shape[0], lay.n_cwd),
+                )
+                self._f_kmax_banks[i] = sa_kmax(lay, offsets, self._hw)
+        self._f_enabled = np.ones(n, dtype=bool)
+        # physical row -> LUT (vote-table) row; spares start unassigned (the
+        # repair that remaps rules onto them is the reliability slice)
+        self._f_row_map = []
+        for lay in self._f_layouts:
+            rm = np.full(lay.cells.shape[0], -1, dtype=np.int32)
+            rm[: lay.n_rows] = np.arange(lay.n_rows, dtype=np.int32)
+            self._f_row_map.append(rm)
+        self._rebuild_plan()
+        self.engine = self._resolve_forest_engine(self._config.engine)
+
+    def _rebuild_plan(self) -> None:
+        """Shard the served (possibly faulted) bank layouts and splice each
+        bank's SA-variability kmax into its group slot."""
+        from ..forest.plan import plan_forest
+
+        self._f_plan = plan_forest(self._f_layouts)
+        self._f_group_kmax = []
+        for grp in self._f_plan.groups:
+            km = np.array(grp.kmax0, copy=True)
+            for slot, bank_id in enumerate(grp.bank_ids):
+                k = self._f_kmax_banks[int(bank_id)]
+                if k is not None:
+                    km[slot, : k.shape[0], : k.shape[1]] = k
+            self._f_group_kmax.append(km)
+
     # -- engine & build machinery -------------------------------------------
     def _layout_id(self) -> str:
+        if self._forest is not None:
+            return "forest-" + self._f_plan.plan_id
         lay = self._layout
         return hashlib.sha1(
             lay.cells.tobytes()
@@ -252,6 +330,29 @@ class TCAMServer:
             self.metrics_store.on_fallback()
             return "mxu"
 
+    def _resolve_forest_engine(self, requested: str) -> str:
+        """Forest engines: 'banked' (PyTorch ops), 'mxu' (the CUDA kernel
+        with a bank grid axis), 'ref' (oracle).  'auto' means 'banked';
+        'packed' is unrepresentable for stacked banks and falls back with a
+        warning."""
+        if requested == "auto":
+            return "banked"
+        if requested in ("banked", "mxu", "ref"):
+            return requested
+        if requested == "packed":
+            warnings.warn(
+                "engine 'packed' is not available in forest mode; "
+                "falling back to 'banked'",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+            self.metrics_store.on_fallback()
+            return "banked"
+        raise ValueError(
+            f"unknown forest engine {requested!r}; expected 'auto', "
+            "'banked', 'mxu' or 'ref'"
+        )
+
     def _match_operands(self, engine: str) -> MatchOperands:
         """The live layout's device operands for one engine, moved to the
         card once and shared by every bucket's batch function."""
@@ -265,7 +366,10 @@ class TCAMServer:
     def _build(self, bucket: int, engine: str):
         """One batch function per (bucket, engine): (bucket, W) padded
         search words (numpy) -> (preds, survivors, n_survivors,
-        active_evals) on the device."""
+        active_evals) on the device.  Forest mode builds one group runner
+        per plan group instead."""
+        if self._forest is not None:
+            return self._build_forest(bucket, engine)
         ops = self._match_operands(engine)
         lay = self._layout
         classes = torch.from_numpy(lay.classes).to(self.device, torch.int32)
@@ -279,6 +383,26 @@ class TCAMServer:
 
         return run
 
+    def _build_forest(self, bucket: int, engine: str) -> list:
+        """Forest compute for one (bucket, engine): one ``GroupRunner`` per
+        plan group, each evaluating its whole stack of banks in a single
+        banked match; a group's operands go to the card once per engine and
+        are shared by every bucket."""
+        from ..forest.executor import GroupRunner
+        from ..kernels.banked import prepare_banked
+
+        runners = []
+        for gi, (grp, km) in enumerate(zip(self._f_plan.groups,
+                                           self._f_group_kmax)):
+            key = f"{engine}:g{gi}"
+            ops = self._operands.get(key)
+            if ops is None:
+                ops = prepare_banked(grp.cells, grp.s, km, engine=engine,
+                                     device=self.device)
+                self._operands[key] = ops
+            runners.append(GroupRunner(self._forest, grp, ops, bucket))
+        return runners
+
     def _sync(self) -> None:
         """Wait for the device (the JAX server's ``block_until_ready``)."""
         if self.device.type == "cuda":
@@ -289,9 +413,14 @@ class TCAMServer:
         run it once (the first run loads the CUDA kernel), so no request
         pays that cost; returns #builds."""
         before = self.cache.misses
-        w = self._layout.n_cwd * self._layout.s
         for b in self.policy.buckets:
             fn = self.cache.get(b, self.engine)
+            if self._forest is not None:
+                zeros = np.zeros((b, self._n_features))
+                for runner in fn:
+                    runner(zeros)
+                continue
+            w = self._layout.n_cwd * self._layout.s
             fn(np.zeros((b, w), np.uint8))
         self._sync()
         return self.cache.misses - before
@@ -435,7 +564,10 @@ class TCAMServer:
         while True:
             try:
                 with self._model_lock:
-                    self._process_inner_single(batch, deadline_flush)
+                    if self._forest is not None:
+                        self._process_inner_forest(batch, deadline_flush)
+                    else:
+                        self._process_inner_single(batch, deadline_flush)
                 break
             except Exception as e:
                 if attempt < self._config.max_retries:
@@ -515,6 +647,85 @@ class TCAMServer:
             self._outstanding -= n
             self._cond.notify_all()
 
+    def _process_inner_forest(self, batch: list, deadline_flush: bool) -> None:
+        """Forest-mode batch: pipelined per-group compute + vote aggregation.
+
+        Each group runner queues its copy, banked match and per-bank
+        reduction on the card and returns, so group g+1's host-side encoding
+        overlaps group g; then per-bank survivors (physical rows translated
+        to LUT rows) aggregate into one ensemble vote per request — disabled
+        banks drop out of both the vote and the divisor."""
+        from ..forest.compiler import aggregate_votes
+        from ..forest.executor import gather_banks
+
+        forest = self._forest
+        t_form = self._clock()
+        reqs: Sequence[_Request] = [p.item for p in batch]
+        queue_lat = np.array([t_form - p.t_enqueue for p in batch])
+        n = len(reqs)
+        bucket = self.policy.bucket_for(n)
+
+        X = np.stack([r.x for r in reqs])
+        if self.fault_injection_hook is not None:
+            self.fault_injection_hook(X)
+        if self._spec.sigma_in > 0:
+            X = X + self._rng.normal(0.0, self._spec.sigma_in, size=X.shape)
+        Xp = forest.prepare_inputs(X, who="TCAMServer")
+
+        outs = [runner(Xp) for runner in self.cache.get(bucket, self.engine)]
+        survivors, n_survivors, active = gather_banks(
+            forest.n_banks, self._f_plan.groups, outs, n, self._f_row_map)
+        compute_s = self._clock() - t_form
+
+        predictions, _score = aggregate_votes(
+            forest, survivors, self._f_enabled
+        )
+        enabled = self._f_enabled
+        n_voting = int(enabled.sum())
+        active_total = active[enabled].sum(axis=0)
+        energy = (active_total.astype(np.float64) * self._hw.e_row
+                  + n_voting * self._hw.e_mem)
+
+        self.metrics_store.on_batch(
+            n, bucket,
+            deadline_flush=deadline_flush,
+            energy_j=float(energy.sum()),
+            active_evals=int(active_total.sum()),
+        )
+        self.metrics_store.queue.record_many(queue_lat)
+        self.metrics_store.compute.record(compute_s)
+        self.metrics_store.total.record_many(queue_lat + compute_s)
+
+        for i, req in enumerate(reqs):
+            pred = predictions[i]
+            req.future.set_result(
+                RequestResult(
+                    prediction=(int(pred) if np.issubdtype(
+                        np.asarray(pred).dtype, np.integer) else pred),
+                    survivor=-1,   # ensemble decision: no single row
+                    n_survivors=int((n_survivors[enabled, i] > 0).sum()),
+                    active_evals=int(active_total[i]),
+                    energy_j=float(energy[i]),
+                    queue_s=float(queue_lat[i]),
+                    compute_s=compute_s,
+                    bucket=bucket,
+                    engine=self.engine,
+                )
+            )
+        with self._cond:
+            self._outstanding -= n
+            self._cond.notify_all()
+
+    def disable_bank(self, bank: int) -> None:
+        """Drop one bank out of the ensemble vote (degraded operation)."""
+        if self._forest is None:
+            raise RuntimeError("disable_bank is only valid in forest mode")
+        mask = self._f_enabled.copy()
+        mask[int(bank)] = False
+        if not mask.any():
+            raise RuntimeError("cannot disable the last voting bank")
+        self._f_enabled = mask
+
     # -- later slices -------------------------------------------------------
     def _not_ported(self, what: str):
         raise NotImplementedError(
@@ -529,6 +740,9 @@ class TCAMServer:
 
     def repair(self, *args, **kwargs):
         self._not_ported("repair")
+
+    def health(self) -> dict:
+        self._not_ported("health")
 
     def advance_time(self, dt: float) -> float:
         self._not_ported("advance_time")
@@ -556,6 +770,28 @@ class TCAMServer:
     def metrics(self) -> dict:
         """JSON-ready snapshot: serving counters/latency + build cache +
         modelled ReCAM hardware figures of merit."""
+        if self._forest is not None:
+            figs = forest_figures(self._f_layouts, self._hw)
+            agg = figs["aggregate"]
+            return self.metrics_store.snapshot(
+                engine=self.engine,
+                device=str(self.device),
+                buckets=list(self.policy.buckets),
+                build_cache=self.cache.stats(),
+                # aggregate = raw per-bank pipelined rates summed; ensemble =
+                # complete forest decisions (all banks' votes needed)
+                modelled_mdecs_pipe=agg["decs_pipe"] / 1e6,
+                modelled_mdecs_ensemble=agg["ensemble_decs_pipe"] / 1e6,
+                forest_figures=figs,
+                layout={
+                    "n_banks": self._f_plan.n_banks,
+                    "groups": [
+                        {"banks": int(g.n_banks), "r_pad": g.r_pad,
+                         "d_pad": g.d_pad, "s": g.s}
+                        for g in self._f_plan.groups
+                    ],
+                },
+            )
         lay, hw = self._layout, self._hw
         fm = f_max(lay.s, hw)
         return self.metrics_store.snapshot(

@@ -8,14 +8,17 @@ machine that has only PyTorch:
 
 The shapes are the kernel sweep of ``test_kernels.py`` plus a larger ragged
 one; kmax covers 0, >0 (several survivors), mixed -1/0/>0 and a fully masked
-last division (kmax = S).
+last division (kmax = S).  The banked entry of the bitplane kernel (a bank
+grid axis) runs the same sweep over G = 1 and 3 stacked banks of unequal
+size, with pad rows (kmax -1) and an all-don't-care pad division, and once
+at more than 2^31 output elements.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels as tk
-from repro_torch.core import CELL_MM, TernaryLUT, bitplanes, synthesize
+from repro_torch.core import CELL_MM, CELL_X, TernaryLUT, bitplanes, synthesize
 
 SWEEP = [
     # rows, width, s, batch (as tests/test_kernels.py)
@@ -105,3 +108,98 @@ def test_bitplane_kernel_unaligned_rows_take_the_byte_path(cuda):
     want = tk.tcam_match_plain(x, is0, is1, 24, km)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def banked_group(rows, width, s, b, g, kind="mixed", pad_div=1):
+    """G banks of unequal size with CELL_MM cells, stacked as
+    ``forest.plan`` stacks them: pad rows carry kmax -1 and ``pad_div`` pad
+    divisions are all don't-care; each bank has its own search words.
+    Returns numpy (cells (G, R, W), xpad (G, B, W), kmax (G, R, D))."""
+    rng = np.random.default_rng(rows * 7 + s + 31 * g)
+    lays = [_random_layout(rng, max(2, rows - 3 * i), max(2, width - 2 * i),
+                           s, with_mm=True) for i in range(g)]
+    r_pad = max(l.cells.shape[0] for l in lays) + 5
+    d_pad = max(l.n_cwd for l in lays) + pad_div
+    cells = np.full((g, r_pad, d_pad * s), CELL_X, np.int8)
+    kmax = np.full((g, r_pad, d_pad), -1, np.int32)
+    xpad = np.zeros((g, b, d_pad * s), np.uint8)
+    for i, lay in enumerate(lays):
+        r, w = lay.cells.shape
+        cells[i, :r, :w] = lay.cells
+        kmax[i, :r, :] = 0
+        kmax[i, :r, : lay.n_cwd] = _kmax(rng, lay, kind)
+        xpad[i, :, :w] = lay.pad_inputs(
+            rng.integers(0, 2, size=(b, lay.width)).astype(np.uint8))
+    return cells, xpad, kmax
+
+
+def _banked_operands(rows, width, s, b, g, kind, dev):
+    cells, xpad, kmax = banked_group(rows, width, s, b, g, kind)
+    is0, is1 = bitplanes(cells)
+    return tuple(torch.from_numpy(a).to(dev) for a in (xpad, is0, is1, kmax))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["zero", "pos", "mixed", "masked"])
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("rows,width,s,b", SWEEP + [(1000, 500, 128, 300)])
+def test_banked_kernel_equals_plain_on_card(cuda, rows, width, s, b, g, kind):
+    x, is0, is1, km = _banked_operands(rows, width, s, b, g, kind, cuda)
+    before = tk.tcam_match_banked_cuda.launches
+    got = tk.tcam_match_banked_cuda(x, is0, is1, km, s=s)
+    torch.cuda.synchronize()
+    assert tk.tcam_match_banked_cuda.launches == before + 1
+    want = tk.tcam_match_banked_plain(x, is0, is1, s, km)
+    for gt, w in zip(got, want):
+        assert gt.shape == (g, b, is0.shape[1])
+        assert torch.equal(gt, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,width,s,b", SWEEP)
+def test_banked_kernel_at_one_bank_equals_the_single_bank_kernel(
+        cuda, rows, width, s, b):
+    x, is0, is1, km = _kernel_operands(rows, width, s, b, "mixed", True, cuda)
+    got = tk.tcam_match_banked_cuda(x[None], is0[None], is1[None], km[None],
+                                    s=s)
+    want = tk.tcam_match_cuda(x, is0, is1, km, s=s)
+    torch.cuda.synchronize()
+    for gt, w in zip(got, want):
+        assert torch.equal(gt[0], w)
+
+
+@pytest.mark.gpu
+def test_banked_kernel_unaligned_rows_take_the_byte_path(cuda):
+    x, is0, is1, km = _banked_operands(40, 70, 24, 33, 3, "mixed", cuda)
+    got = tk.tcam_match_banked_cuda(x, is0, is1, km, s=24)
+    want = tk.tcam_match_banked_plain(x, is0, is1, 24, km)
+    for gt, w in zip(got, want):
+        assert torch.equal(gt, w)
+
+
+@pytest.mark.gpu
+def test_banked_kernel_past_two_to_the_31_output_elements(cuda):
+    """(G, B, R) = (4, 16384, 36864): 2.42e9 elements per output, so the
+    last bank's slab lies partly beyond 2^31.  kmax in {-1, 43, S} makes
+    survive and evals depend on both the word and the row; the last bank
+    is held against the plain version."""
+    g, b, r, s = 4, 16384, 36864, 128
+    need = 2 * g * b * r * 4 + 12 * b * r * 4      # outputs + plain's temps
+    if torch.cuda.mem_get_info(cuda)[0] < need:
+        pytest.skip(f"needs {need / 2**30:.0f} GiB free on the card")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cells = torch.randint(0, 3, (g, r, 2 * s), device=cuda, generator=gen)
+    is0 = (cells == 0).to(torch.uint8)
+    is1 = (cells == 1).to(torch.uint8)
+    x = torch.randint(0, 2, (g, b, 2 * s), device=cuda, generator=gen,
+                      dtype=torch.uint8)
+    choice = torch.tensor([-1, 43, s], dtype=torch.int32, device=cuda)
+    km = choice[torch.randint(0, 3, (g, r, 2), device=cuda, generator=gen)]
+    del cells
+    survive, evals = tk.tcam_match_banked_cuda(x, is0, is1, km, s=s)
+    torch.cuda.synchronize()
+    assert survive.numel() > 2**31
+    want = tk.tcam_match_banked_plain(x[-1:], is0[-1:], is1[-1:], s, km[-1:])
+    assert torch.equal(survive[-1:], want[0])
+    assert torch.equal(evals[-1:], want[1])
+    assert 0 < int(want[0].sum()) < b * r and int((want[1] == 2).sum()) > 0

@@ -48,14 +48,20 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_refuse_to_default_to_the_cpu(no_cuda):
-    from repro_torch import DT2CAM, TCAMServer, resolve_device, tcam_infer
+    from repro_torch import (DT2CAM, ForestExecutor, ServeConfig, TCAMServer,
+                             compile_forest, plan_forest, resolve_device,
+                             tcam_infer, tcam_match_banked, train_forest)
     from repro_torch.dt import load_split
-    from repro_torch.kernels import prepare_match, tcam_match
+    from repro_torch.kernels import prepare_banked, prepare_match, tcam_match
 
     Xtr, ytr, Xte, _ = load_split("iris")
     m = DT2CAM(s=16, max_depth=3).fit(Xtr, ytr)
     lay = m.compiled.layout
     xpad = np.zeros((2, lay.n_cwd * lay.s), np.uint8)
+    forest = compile_forest(train_forest(Xtr, ytr, n_trees=2, max_depth=3),
+                            s=16)
+    grp = plan_forest(forest).groups[0]
+    xbank = np.zeros((grp.n_banks, 2, grp.width), np.uint8)
     calls = [
         lambda: resolve_device(None),
         lambda: resolve_device("cuda"),
@@ -65,6 +71,12 @@ def test_entry_points_refuse_to_default_to_the_cpu(no_cuda):
         lambda: tcam_match(lay.cells, xpad, lay.s),
         lambda: prepare_match(lay.cells, lay.s),
         lambda: TCAMServer(m.compiled),
+        lambda: ForestExecutor(forest),
+        lambda: ForestExecutor(forest, engine="mxu"),
+        lambda: tcam_match_banked(grp.cells, xbank, grp.s, engine="mxu"),
+        lambda: prepare_banked(grp.cells, grp.s),
+        lambda: TCAMServer(forest),
+        lambda: TCAMServer(forest, config=ServeConfig(engine="mxu")),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -72,3 +84,5 @@ def test_entry_points_refuse_to_default_to_the_cpu(no_cuda):
     # asking for the CPU is the one way to run without a card
     assert m.infer(Xte, backend="torch", device="cpu").predictions.shape == (
         len(Xte),)
+    assert ForestExecutor(forest, engine="mxu", device="cpu").infer(
+        Xte).predictions.shape == (len(Xte),)
