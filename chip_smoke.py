@@ -62,6 +62,9 @@ PEAK_BW = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
 PEAK_INT8_TENSOR = 1979e12   # dense int8 tensor-core rate, H100 SXM
 PEAK_CUDA_CORE = 67e12       # non-tensor fp32 rate, H100 SXM (int32 ALU bound)
 SERVE_REQUESTS = 4096
+FOREST_DATASET = "credit"    # the forest phase: train_forest's defaults here,
+FOREST_TREES = 25            # 25 bagged trees at max_depth=12, seed 0,
+FOREST_S = 128               # compiled at S=128
 FOREST_SLICE = 512           # queries checked on the banked and ref engines
 REPLACES = {"tcam_match": "src/repro/kernels/tcam_match.py:38",
             "tcam_packed": "src/repro/kernels/tcam_packed.py:30",
@@ -181,12 +184,8 @@ def hard_vote(trees, X, n_classes: int):
     return np.argmax(counts, axis=1)
 
 
-def forest_phase(dev, bw: float, *, dataset: str = "credit",
-                 n_trees: int = 25, s: int = 128,
-                 n_slice: int = FOREST_SLICE,
-                 n_serve: int = SERVE_REQUESTS) -> tuple[dict, dict]:
-    """Phase 6: the forest path.  Returns the banked kernel's record and
-    the serving summary."""
+def forest_phase(dev, bw: float) -> dict:
+    """Phase 6: the forest path.  Returns the banked kernel's record."""
     import numpy as np
     import torch
 
@@ -201,16 +200,17 @@ def forest_phase(dev, bw: float, *, dataset: str = "credit",
                                      tcam_match_packed_cuda)
     from repro_torch.serve import ServeConfig, TCAMServer
 
-    Xtr, ytr, Xte, _ = load_split(dataset)
+    Xtr, ytr, Xte, _ = load_split(FOREST_DATASET)
     t0 = time.perf_counter()
-    trees = train_forest(Xtr, ytr, n_trees=n_trees)
+    trees = train_forest(Xtr, ytr, n_trees=FOREST_TREES)
     t_fit = time.perf_counter() - t0
     t0 = time.perf_counter()
-    forest = compile_forest(trees, s=s)
+    forest = compile_forest(trees, s=FOREST_S)
     t_compile = time.perf_counter() - t0
     plan = plan_forest(forest)
     log(json.dumps({"forest": {
-        "dataset": dataset, "trees": n_trees, "s": s, "fit_s": t_fit,
+        "dataset": FOREST_DATASET, "trees": FOREST_TREES, "s": FOREST_S,
+        "fit_s": t_fit,
         "compile_s": t_compile, "plan_id": plan.plan_id,
         "bank_rows": [int(l.cells.shape[0]) for l in forest.layouts],
         "bank_divisions": [int(l.n_cwd) for l in forest.layouts],
@@ -250,7 +250,7 @@ def forest_phase(dev, bw: float, *, dataset: str = "credit",
             res.figures["aggregate"]["energy_per_dec_j"] * 1e9}}))
     del ex, again
 
-    Xs = Xte[:n_slice]
+    Xs = Xte[:FOREST_SLICE]
     want = ForestExecutor(forest, engine="mxu", device=dev,
                           plan=plan).infer(Xs)
     t0 = time.perf_counter()
@@ -302,7 +302,7 @@ def forest_phase(dev, bw: float, *, dataset: str = "credit",
     del cases
 
     # -- forest serving ---------------------------------------------------------
-    n = min(n_serve, len(Xte))
+    n = min(SERVE_REQUESTS, len(Xte))
     active = res.active_evals[:, :n].sum(axis=0)
     energy = (active.astype(np.float64) * DEFAULT_HW.e_row
               + forest.n_banks * DEFAULT_HW.e_mem)
@@ -340,7 +340,7 @@ def forest_phase(dev, bw: float, *, dataset: str = "credit",
             "total_p99_ms": stats["total_latency"]["p99_ms"],
             "banked_launches": kernel_launches}
     log(json.dumps({"forest_serve": serve}))
-    return rec, serve
+    return rec
 
 
 def main() -> int:
@@ -530,7 +530,7 @@ def main() -> int:
     del x, km
 
     # -- 6. forest ----------------------------------------------------------------
-    banked, _ = forest_phase(dev, bw)
+    banked = forest_phase(dev, bw)
 
     # -- 7. result ---------------------------------------------------------------
     log(smi)

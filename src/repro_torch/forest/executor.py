@@ -128,15 +128,35 @@ class GroupRunner:
         return reduce_banks(survive, evals, self.rows, self.d_real)
 
 
-def gather_banks(n_banks: int, groups, outs, b: int,
-                 row_maps: Optional[list] = None):
-    """Move each group's (G, B) results to the host (the first read waits
-    for the card) and scatter them into (n_banks, B) arrays in bank order;
+def build_group(forest: CompiledForest, plan: ForestPlan, gi: int,
+                kmax: np.ndarray, engine: str, bucket: int,
+                device: torch.device, operands: dict) -> GroupRunner:
+    """Group ``gi``'s runner for one (bucket, engine).  The group's device
+    operands go to the card once per (engine, group), kept in ``operands``
+    under ``"engine:g<i>"`` and shared by every bucket."""
+    grp = plan.groups[gi]
+    key = f"{engine}:g{gi}"
+    ops = operands.get(key)
+    if ops is None:
+        ops = prepare_banked(grp.cells, grp.s, kmax, engine=engine,
+                             device=device)
+        operands[key] = ops
+    return GroupRunner(forest, grp, ops, bucket)
+
+
+def run_groups(runners, Xp: np.ndarray, n_banks: int,
+               row_maps: Optional[list] = None):
+    """Run each group's runner in turn (an iterable, so a lazy one builds
+    group g+1 while group g is on the card), then gather the results:
+    (survivors, n_survivors, active), each (n_banks, B), in bank order;
     ``row_maps[i]`` translates bank i's physical survivor rows to LUT rows."""
+    b = Xp.shape[0]
     survivors = np.empty((n_banks, b), np.int32)
     n_survivors = np.empty((n_banks, b), np.int32)
     active = np.empty((n_banks, b), np.int64)
-    for grp, out in zip(groups, outs):
+    pending = [(runner.group, runner(Xp)) for runner in runners]
+    # the first read waits for the card
+    for grp, out in pending:
         first, count, act = (t.cpu().numpy() for t in out)
         for slot, bank_id in enumerate(grp.bank_ids):
             i = int(bank_id)
@@ -187,16 +207,15 @@ class ForestExecutor:
 
     # -- build machinery ----------------------------------------------------
     def _build(self, bucket: int, key: str) -> GroupRunner:
-        """One group runner per (batch-bucket, engine, group); the group's
-        operands go to the device once per (engine, group)."""
+        """One group runner per (batch-bucket, engine, group)."""
         engine, gi = key.rsplit(":g", 1)
-        grp = self.plan.groups[int(gi)]
-        ops = self._operands.get(key)
-        if ops is None:
-            ops = prepare_banked(grp.cells, grp.s, self._kmax[int(gi)],
-                                 engine=engine, device=self.device)
-            self._operands[key] = ops
-        return GroupRunner(self.forest, grp, ops, bucket)
+        return build_group(self.forest, self.plan, int(gi),
+                           self._kmax[int(gi)], engine, bucket, self.device,
+                           self._operands)
+
+    def _runners(self, bucket: int):
+        return (self.cache.get(bucket, f"{self.engine}:g{gi}")
+                for gi in range(self.plan.n_groups))
 
     def _bucket_for(self, b: int) -> int:
         top = self.min_bucket
@@ -213,9 +232,7 @@ class ForestExecutor:
         before = self.cache.misses
         bucket = self._bucket_for(batch)
         zeros = np.zeros((bucket, self.forest.n_features))
-        outs = [self.cache.get(bucket, f"{self.engine}:g{gi}")(zeros)
-                for gi in range(self.plan.n_groups)]
-        gather_banks(self.forest.n_banks, self.plan.groups, outs, bucket)
+        run_groups(self._runners(bucket), zeros, self.forest.n_banks)
         return self.cache.misses - before
 
     # -- execution ----------------------------------------------------------
@@ -239,10 +256,8 @@ class ForestExecutor:
         # pipelined: each runner queues its group's copy, match and
         # reduction and returns at once, so encoding group g+1 on the host
         # overlaps group g on the card
-        outs = [self.cache.get(bucket, f"{self.engine}:g{gi}")(Xp)
-                for gi in range(self.plan.n_groups)]
-        survivors, n_survivors, active = gather_banks(
-            forest.n_banks, self.plan.groups, outs, b)
+        survivors, n_survivors, active = run_groups(
+            self._runners(bucket), Xp, forest.n_banks)
         if not selective_precharge:
             for grp in self.plan.groups:
                 for slot, bank_id in enumerate(grp.bank_ids):

@@ -386,22 +386,12 @@ class TCAMServer:
     def _build_forest(self, bucket: int, engine: str) -> list:
         """Forest compute for one (bucket, engine): one ``GroupRunner`` per
         plan group, each evaluating its whole stack of banks in a single
-        banked match; a group's operands go to the card once per engine and
-        are shared by every bucket."""
-        from ..forest.executor import GroupRunner
-        from ..kernels.banked import prepare_banked
+        banked match."""
+        from ..forest.executor import build_group
 
-        runners = []
-        for gi, (grp, km) in enumerate(zip(self._f_plan.groups,
-                                           self._f_group_kmax)):
-            key = f"{engine}:g{gi}"
-            ops = self._operands.get(key)
-            if ops is None:
-                ops = prepare_banked(grp.cells, grp.s, km, engine=engine,
-                                     device=self.device)
-                self._operands[key] = ops
-            runners.append(GroupRunner(self._forest, grp, ops, bucket))
-        return runners
+        return [build_group(self._forest, self._f_plan, gi, km, engine,
+                            bucket, self.device, self._operands)
+                for gi, km in enumerate(self._f_group_kmax)]
 
     def _sync(self) -> None:
         """Wait for the device (the JAX server's ``block_until_ready``)."""
@@ -416,9 +406,9 @@ class TCAMServer:
         for b in self.policy.buckets:
             fn = self.cache.get(b, self.engine)
             if self._forest is not None:
-                zeros = np.zeros((b, self._n_features))
-                for runner in fn:
-                    runner(zeros)
+                from ..forest.executor import run_groups
+                run_groups(fn, np.zeros((b, self._n_features)),
+                           self._forest.n_banks)
                 continue
             w = self._layout.n_cwd * self._layout.s
             fn(np.zeros((b, w), np.uint8))
@@ -656,7 +646,7 @@ class TCAMServer:
         to LUT rows) aggregate into one ensemble vote per request — disabled
         banks drop out of both the vote and the divisor."""
         from ..forest.compiler import aggregate_votes
-        from ..forest.executor import gather_banks
+        from ..forest.executor import run_groups
 
         forest = self._forest
         t_form = self._clock()
@@ -672,9 +662,9 @@ class TCAMServer:
             X = X + self._rng.normal(0.0, self._spec.sigma_in, size=X.shape)
         Xp = forest.prepare_inputs(X, who="TCAMServer")
 
-        outs = [runner(Xp) for runner in self.cache.get(bucket, self.engine)]
-        survivors, n_survivors, active = gather_banks(
-            forest.n_banks, self._f_plan.groups, outs, n, self._f_row_map)
+        survivors, n_survivors, active = run_groups(
+            self.cache.get(bucket, self.engine), Xp, forest.n_banks,
+            self._f_row_map)
         compute_s = self._clock() - t_form
 
         predictions, _score = aggregate_votes(
