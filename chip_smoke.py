@@ -25,18 +25,29 @@ Phases (any failed check raises, so the script exits non-zero):
    an SA-variability kmax holding -1, 0 and >0: kernel == plain version
    (``torch.equal``), then CUDA-event medians of the kernel, the plain
    version and a PyTorch yardstick, beside the least time the card could
-   take (bytes over the card's memory rate, operations over its peak);
+   take (bytes over the card's memory rate, operations over its peak).  The
+   bitplane kernel is timed as the main path calls it: the prepacked entry
+   (``tcam_match_bits_cuda``: the pack kernel on the search words, then the
+   match) on operands from ``prepare_match``; its uint8 entry is held
+   against the plain version too.  For it the record adds evaluated
+   triples per second, output GB/s, the pack kernel's time and its
+   ``torch.equal`` against ``pack_bits``, the one-off plane pack at
+   prepare, the match alone and on division 0 only, the time the card
+   takes to write arrays of the outputs' size (the store floor), and
+   ``ptxas``'s registers, shared memory and spills;
 5. serving: ``TCAMServer`` on credit, warmed up, serving 4096 test queries;
    results equal ``tcam_infer``'s;
 6. forest: fit the credit forest (``train_forest`` defaults: 25 bagged
    trees at ``max_depth=12``, seed 0), compile at S=128 and plan it (two
    groups).  Main path: ``ForestExecutor(engine="mxu")`` on all 12,027 test
-   queries, the banked kernel's counter zeroed before and read after (one
-   launch per group): predictions equal the trees' hard vote, one survivor
+   queries, the banked kernel's counters zeroed before and read after (one
+   launch per group, each on the tiled path): predictions equal the trees' hard vote, one survivor
    per bank and query; engines banked and ref give the same ``ForestResult``
    on a slice.  Then the banked kernel at both group shapes against its
    plain version (an SA kmax holding -1, 0 and >0; stuck faults in the first
-   group), timed beside a bf16 ``torch.bmm`` yardstick and its bound; then
+   group), through the prepacked entry on ``prepare_banked`` operands with
+   the same added figures as phase 4, timed beside a bf16 ``torch.bmm``
+   yardstick and its bound; then
    forest serving of 4096 queries with engines mxu and auto (= banked),
    equal to the executor;
 7. the kernels line, the card's name and power limit, and the last line:
@@ -59,7 +70,6 @@ sys.path.insert(0, str(ROOT / "src"))
 # Peak memory rate by card (NVIDIA data sheets), bytes/s; the name decides.
 PEAK_BW = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
            ("H100", 3.35e12))
-PEAK_INT8_TENSOR = 1979e12   # dense int8 tensor-core rate, H100 SXM
 PEAK_CUDA_CORE = 67e12       # non-tensor fp32 rate, H100 SXM (int32 ALU bound)
 SERVE_REQUESTS = 4096
 FOREST_DATASET = "credit"    # the forest phase: train_forest's defaults here,
@@ -69,6 +79,7 @@ FOREST_SLICE = 512           # queries checked on the banked and ref engines
 REPLACES = {"tcam_match": "src/repro/kernels/tcam_match.py:38",
             "tcam_packed": "src/repro/kernels/tcam_packed.py:30",
             "tcam_match_banked": "src/repro/kernels/banked.py:147"}
+PTXAS: dict = {}             # kernel (mangled name) -> ptxas -v report, phase 2
 SOURCES = {"tcam_match": "src/repro_torch/csrc/tcam_match.cu",
            "tcam_packed": "src/repro_torch/csrc/tcam_packed.cu",
            "tcam_match_banked": "src/repro_torch/csrc/tcam_match.cu"}
@@ -125,12 +136,14 @@ def measure(kname: str, cases: list, launches: int, bw: float) -> dict:
     ``plain``, ``library`` (or None), ``inputs``, ``ops_per_eval``,
     ``op_peak`` and ``shape``.  Times, bytes and bounds add up over the cases
     (the launches one pass of the main path makes); ``bound_ms`` is the
-    larger of bytes over the memory rate and operations over the peak."""
+    larger of bytes over the memory rate and operations over the peak.
+    A case's optional ``extra(got)`` adds figures to its record."""
     import torch
     rec = {"name": kname, "route": "cuda", "source": SOURCES[kname],
            "replaces": REPLACES[kname], "launches": launches,
            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
            "bound_by": "bytes", "library_ms": None, "bytes": 0,
+           "output_bytes": 0,
            "evaluated_divisions": 0, "cases": []}
     t_bytes = t_ops = 0.0
     for case in cases:
@@ -145,10 +158,13 @@ def measure(kname: str, cases: list, launches: int, bw: float) -> dict:
         rec["max_abs_err"] = max(
             [rec["max_abs_err"]]
             + [float((g - w).abs().max()) for g, w in zip(got, want)])
+        del want
         evals_total = int(got[1].sum(dtype=torch.int64))
-        nbytes = sum(t.numel() * t.element_size()
-                     for t in (*case["inputs"], *got))
-        del got, want
+        out_bytes = sum(t.numel() * t.element_size() for t in got)
+        nbytes = out_bytes + sum(t.numel() * t.element_size()
+                                 for t in case["inputs"])
+        extra = case["extra"](got) if case.get("extra") else {}
+        del got
         c_bytes = nbytes / bw * 1e3
         c_ops = evals_total * case["ops_per_eval"] / case["op_peak"] * 1e3
         t_bytes, t_ops = t_bytes + c_bytes, t_ops + c_ops
@@ -158,17 +174,100 @@ def measure(kname: str, cases: list, launches: int, bw: float) -> dict:
                               else cuda_ms(case["library"], 10, 2)),
                "bound_ms": max(c_bytes, c_ops), "bytes": nbytes,
                "evaluated_divisions": evals_total}
-        for k in ("ms", "plain_ms", "bytes", "evaluated_divisions"):
+        one["triples_per_s"] = evals_total / one["ms"] * 1e3
+        one["output_GBps"] = out_bytes / one["ms"] * 1e-6
+        one.update(extra)
+        one["output_bytes"] = out_bytes
+        for k in ("ms", "plain_ms", "bytes", "output_bytes",
+                  "evaluated_divisions"):
             rec[k] += one[k]
         if one["library_ms"] is not None:
             rec["library_ms"] = (rec["library_ms"] or 0.0) + one["library_ms"]
         rec["cases"].append(one)
     rec["bound_ms"] = max(t_bytes, t_ops)
     rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    rec["triples_per_s"] = rec["evaluated_divisions"] / rec["ms"] * 1e3
+    rec["output_GBps"] = rec["output_bytes"] / rec["ms"] * 1e-6
     if len(cases) == 1:
-        rec["shape"] = rec.pop("cases")[0]["shape"]
+        one = rec.pop("cases")[0]
+        rec.update({k: v for k, v in one.items() if k not in rec})
     log(json.dumps(rec))
     return rec
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper that counts its launches, by name."""
+    from repro_torch import kernels as tk
+    return {f.__name__: f for f in (
+        tk.tcam_match_cuda, tk.tcam_match_bits_cuda, tk.tcam_match_packed_cuda,
+        tk.tcam_match_banked_cuda, tk.tcam_match_banked_bits_cuda,
+        tk.pack_words_cuda, tk.pack_planes_cuda)}
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels import MATCH_PATH_LAUNCHES
+    for f in kernel_counters().values():
+        f.launches = 0
+    for path in MATCH_PATH_LAUNCHES:
+        MATCH_PATH_LAUNCHES[path] = 0
+
+
+def read_counts() -> dict:
+    """Launches per wrapper, and the bitplane kernel's by path."""
+    from repro_torch.kernels import MATCH_PATH_LAUNCHES
+    counts = {n: f.launches for n, f in kernel_counters().items()}
+    counts.update({f"path_{k}": v for k, v in MATCH_PATH_LAUNCHES.items()})
+    return counts
+
+
+def ptxas_of(fragment: str) -> str:
+    """``ptxas -v``'s report (registers, shared memory, spills) of the
+    kernel whose mangled name holds ``fragment``, from phase 2's build."""
+    lines = [v for k, v in PTXAS.items() if fragment in k]
+    return lines[0] if lines else "not reported: library built before this run"
+
+
+def bitplane_extra(got, x, is0, is1, planes, kmax_t, s: int,
+                   uint8_entry) -> dict:
+    """Figures the bitplane rows add (phases 4 and 6), on G-leading
+    tensors: the uint8 entry equals the prepacked one; the pack kernel on
+    the search words equals ``pack_bits`` (``torch.equal``), and its time;
+    the one-off plane pack of ``prepare_*``, equal to the operands it made,
+    and its time; the match kernel alone on packed words, and on division 0
+    only (the same launch with D = 1: every pair evaluated once, all
+    outputs written); the time the card
+    takes to write two arrays of the outputs' size (``fill_``, the store
+    floor, which overwrites ``got``); ``ptxas``."""
+    import torch
+
+    from repro_torch.kernels import (pack_bits, pack_planes_cuda,
+                                     pack_words_cuda)
+    from repro_torch.kernels._cuda import launch_match_bits
+    for g, w in zip(uint8_entry(), got):
+        check(torch.equal(g, w), "uint8 entry == prepacked entry")
+    g_, b, w = x.shape
+    sw = -(-s // 32)
+    xw = pack_words_cuda(x, s=s)
+    want = pack_bits(x).view(g_, b, w // s, sw).transpose(1, 2)
+    pack_equal = torch.equal(xw[:, :, :b], want)
+    check(pack_equal, "pack kernel == pack_bits")
+    del want
+    check(torch.equal(pack_planes_cuda(is0, is1, s=s), planes),
+          "plane pack == prepared operands")
+    first = [t[:, :1].contiguous() for t in (xw, planes, kmax_t)]
+    return {
+        "pack_ms": cuda_ms(lambda: pack_words_cuda(x, s=s), 10, 2),
+        "pack_equal": pack_equal,
+        "plane_pack_ms": cuda_ms(lambda: pack_planes_cuda(is0, is1, s=s), 5, 1),
+        "match_only_ms": cuda_ms(
+            lambda: launch_match_bits(xw, planes, kmax_t, b, s), 10, 2),
+        "division0_ms": cuda_ms(
+            lambda: launch_match_bits(*first, b, s), 10, 2),
+        "store_floor_ms": cuda_ms(lambda: [t.fill_(1) for t in got], 10, 2),
+        "ptxas": {"match_bits_kernel": ptxas_of(f"match_bits_kernelILi{sw}E"),
+                  "pack_kernel_wide": ptxas_of("pack_kernel_wide"),
+                  "pack_kernel": ptxas_of("pack_kernelEPKh")},
+    }
 
 
 def hard_vote(trees, X, n_classes: int):
@@ -194,10 +293,11 @@ def forest_phase(dev, bw: float) -> dict:
     from repro_torch.forest import (ForestExecutor, compile_forest,
                                     encode_group, forest_infer_ref,
                                     plan_forest, train_forest)
+    from repro_torch.core import bitplanes
     from repro_torch.kernels import (prepare_banked, sa_kmax,
+                                     tcam_match_banked_bits_cuda,
                                      tcam_match_banked_cuda,
-                                     tcam_match_banked_plain, tcam_match_cuda,
-                                     tcam_match_packed_cuda)
+                                     tcam_match_banked_plain)
     from repro_torch.serve import ServeConfig, TCAMServer
 
     Xtr, ytr, Xte, _ = load_split(FOREST_DATASET)
@@ -220,19 +320,24 @@ def forest_phase(dev, bw: float) -> dict:
 
     # -- main path: ForestExecutor on the CUDA kernel ----------------------
     ex = ForestExecutor(forest, engine="mxu", device=dev, plan=plan)
-    for kernel in (tcam_match_cuda, tcam_match_packed_cuda,
-                   tcam_match_banked_cuda):
-        kernel.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = ex.infer(Xte)
     t_first = time.perf_counter() - t0
-    launches = tcam_match_banked_cuda.launches
-    check(tcam_match_cuda.launches == tcam_match_packed_cuda.launches == 0,
+    counts = read_counts()
+    log(f"forest main path launches: {counts}")
+    launches = counts["tcam_match_banked_bits_cuda"]
+    check(counts["tcam_match_cuda"] == counts["tcam_match_bits_cuda"]
+          == counts["tcam_match_packed_cuda"] == 0,
           "the forest path launched no single-bank kernel")
-    check(launches == plan.n_groups,
-          f"banked kernel launched once per group ({launches} launches, "
-          f"{plan.n_groups} groups)")
+    check(launches == plan.n_groups == counts["pack_words_cuda"],
+          f"banked kernel and word pack launched once per group ({launches} "
+          f"launches, {plan.n_groups} groups)")
+    check(counts["path_tiled"] == launches and counts["path_any"] == 0,
+          "every forest group took the tiled path")
+    check(counts["pack_planes_cuda"] == plan.n_groups,
+          "each group's planes were packed once, at prepare")
     check(np.array_equal(res.predictions, golden),
           "forest predictions equal the trees' hard vote")
     check(bool((res.n_survivors == 1).all()),
@@ -283,15 +388,20 @@ def forest_phase(dev, bw: float) -> dict:
               f"group {gi}: CELL_MM cells only where faults were injected")
         ops = prepare_banked(cells, grp.s, km, engine="mxu", device=dev)
         x = torch.from_numpy(encode_group(forest, grp, Xte)).to(dev)
-        xb16, p0b16 = x.to(torch.bfloat16), ops.is0.to(torch.bfloat16)
+        is0, is1 = (torch.from_numpy(p).to(dev) for p in bitplanes(cells))
+        k = torch.from_numpy(km).to(dev)
+        xb16, p0b16 = x.to(torch.bfloat16), is0.to(torch.bfloat16)
         cases.append({
-            "run": lambda x=x, o=ops: tcam_match_banked_cuda(
-                x, o.is0, o.is1, o.kmax, s=o.s),
-            "plain": lambda x=x, o=ops: tcam_match_banked_plain(
-                x, o.is0, o.is1, o.s, o.kmax),
+            "run": lambda x=x, o=ops: tcam_match_banked_bits_cuda(
+                x, o.a, o.kmax, s=o.s),
+            "plain": lambda x=x, a=is0, b=is1, k=k, s=grp.s:
+                tcam_match_banked_plain(x, a, b, s, k),
             "library": lambda a=xb16, b=p0b16: torch.bmm(a, b.transpose(1, 2)),
-            "inputs": (x, ops.is0, ops.is1, ops.kmax),
-            "ops_per_eval": 4 * grp.s, "op_peak": PEAK_INT8_TENSOR,
+            "extra": lambda got, x=x, a=is0, b=is1, k=k, o=ops: bitplane_extra(
+                got, x, a, b, o.a, o.kmax, o.s,
+                lambda: tcam_match_banked_cuda(x, a, b, k, s=o.s)),
+            "inputs": (x, ops.a, ops.kmax),
+            "ops_per_eval": 3 * -(-grp.s // 32), "op_peak": PEAK_CUDA_CORE,
             "shape": {"G": grp.n_banks, "B": x.shape[1], "R": grp.r_pad,
                       "W": grp.width, "S": grp.s, "D": grp.d_pad,
                       "stuck_faults": gi == 0},
@@ -308,7 +418,7 @@ def forest_phase(dev, bw: float) -> dict:
               + forest.n_banks * DEFAULT_HW.e_mem)
     serve = {}
     for engine in ("mxu", "auto"):
-        tcam_match_banked_cuda.launches = 0
+        zero_counts()
         with TCAMServer(forest, config=ServeConfig(engine=engine,
                                                    max_batch=256),
                         device=dev) as srv:
@@ -325,7 +435,7 @@ def forest_phase(dev, bw: float) -> dict:
                        ("n_survivors", np.full(n, forest.n_banks))):
             check(np.array_equal([getattr(r, f) for r in got], arr),
                   f"forest served ({engine}) {f} equals the executor's")
-        kernel_launches = tcam_match_banked_cuda.launches
+        kernel_launches = tcam_match_banked_bits_cuda.launches
         check((kernel_launches > 0) == (engine == "mxu"),
               f"forest serving on {engine} launched the banked kernel "
               f"{kernel_launches} times")
@@ -357,9 +467,9 @@ def main() -> int:
                                   train_tree)
     from repro_torch.core.lut import CELL_MM, bitplanes
     from repro_torch.dt import DATASETS, load_split
-    from repro_torch.kernels import (build_all, pack_bits, sa_kmax,
-                                     select_engine, tcam_infer,
-                                     tcam_match_banked_cuda, tcam_match_cuda,
+    from repro_torch.kernels import (build_all, pack_bits, prepare_match,
+                                     sa_kmax, select_engine, tcam_infer,
+                                     tcam_match_bits_cuda, tcam_match_cuda,
                                      tcam_match_packed_cuda,
                                      tcam_match_packed_plain, tcam_match_plain)
     from repro_torch.serve import ServeConfig, TCAMServer
@@ -380,8 +490,13 @@ def main() -> int:
     reports = build_all()
     log(f"setup: kernel build {time.perf_counter() - t0:.2f} s")
     for src, out in reports.items():
+        entry = None
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif entry and ("registers" in line or "spill" in line):
+                PTXAS[entry] = (PTXAS.get(entry, "") + " "
+                                + line.split(":", 1)[-1].strip()).strip()
                 log(f"  ptxas {src}: {line.strip()}")
 
     # -- 3. main path at credit scale ------------------------------------------
@@ -407,9 +522,7 @@ def main() -> int:
     golden = predict(tree, Xte)
     xbits = encode_inputs(compiled.lut, Xte)
 
-    tcam_match_cuda.launches = 0
-    tcam_match_packed_cuda.launches = 0
-    tcam_match_banked_cuda.launches = 0
+    zero_counts()
     check(select_engine(lay.cells, lay.s, "auto") == "packed",
           "auto resolves to packed on ideal hardware")
     ideal = {}
@@ -448,11 +561,19 @@ def main() -> int:
     same_result(got, cm.infer(cXte, backend="sim"), "covid torch vs sim")
     check(np.array_equal(got.predictions, cm.golden_predict(cXte)),
           "covid predictions equal the tree's own")
-    launches = {"tcam_match": tcam_match_cuda.launches,
-                "tcam_packed": tcam_match_packed_cuda.launches}
-    log(f"main path launches: {launches}")
+    counts = read_counts()
+    launches = {"tcam_match": counts["tcam_match_bits_cuda"],
+                "tcam_packed": counts["tcam_match_packed_cuda"]}
+    log(f"main path launches: {counts}")
     check(all(n > 0 for n in launches.values()),
           "both kernels launched on the main path")
+    check(counts["tcam_match_cuda"] == counts["tcam_match_banked_cuda"]
+          == counts["tcam_match_banked_bits_cuda"] == 0,
+          "the main path runs the bitplane kernel through its prepacked entry")
+    check(counts["path_tiled"] == launches["tcam_match"]
+          == counts["pack_words_cuda"] and counts["path_any"] == 0,
+          "every bitplane launch took the tiled path, each after one pack")
+    check(counts["pack_planes_cuda"] > 0, "planes packed at prepare")
 
     # -- 4. kernels at the credit shapes --------------------------------------
     x = torch.from_numpy(lay.pad_inputs(xbits)).to(dev)
@@ -480,20 +601,25 @@ def main() -> int:
     del val, care
 
     f0, f1 = (torch.from_numpy(p).to(dev) for p in bitplanes(faulted))
+    ops = prepare_match(faulted, lay.s, km_np, engine="mxu", device=dev)
     xb16, f0b16 = x.to(torch.bfloat16), f0.to(torch.bfloat16)
     bitplane = measure("tcam_match", [{
-        "run": lambda: tcam_match_cuda(x, f0, f1, km, s=lay.s),
+        "run": lambda: tcam_match_bits_cuda(x, ops.a, ops.kmax, s=lay.s),
         "plain": lambda: tcam_match_plain(x, f0, f1, lay.s, km),
         "library": lambda: torch.matmul(xb16, f0b16.T),
-        "inputs": (x, f0, f1, km), "ops_per_eval": 4 * lay.s,
-        "op_peak": PEAK_INT8_TENSOR, "shape": shape,
+        "extra": lambda got: bitplane_extra(
+            [t[None] for t in got], x[None], f0[None], f1[None], ops.a[None],
+            ops.kmax[None], lay.s,
+            lambda: [t[None] for t in tcam_match_cuda(x, f0, f1, km,
+                                                      s=lay.s)]),
+        "inputs": (x, ops.a, ops.kmax), "ops_per_eval": 3 * sw,
+        "op_peak": PEAK_CUDA_CORE, "shape": shape,
     }], launches["tcam_match"], bw)
     bitplane["library_call"] = "bf16 torch.matmul (B,W)x(W,R): products only"
-    del xb16, f0b16, f0, f1
+    del xb16, f0b16, f0, f1, ops
 
     # -- 5. serving -------------------------------------------------------------
-    tcam_match_cuda.launches = 0
-    tcam_match_packed_cuda.launches = 0
+    zero_counts()
     n = SERVE_REQUESTS
     with TCAMServer(compiled, config=ServeConfig(max_batch=256),
                     device="cuda") as srv:

@@ -1,53 +1,84 @@
-// Bitplane ternary CAM match with selective precharge, for sm_90a.
+// Bitplane ternary CAM match with selective precharge, for sm_90a, on
+// bit-packed, division-major operands.
 //
-// Replaces: src/repro/kernels/tcam_match.py, `_kernel` launched by
-// `tcam_match_pallas` (the Pallas TPU kernel behind engine "mxu").
+// Replaces: src/repro/kernels/tcam_match.py:38, `_kernel` launched by
+// `tcam_match_pallas` (the Pallas TPU kernel behind engine "mxu"), and the
+// forest's launch of the same kernel over a bank axis,
+// src/repro/kernels/banked.py `tcam_match_banked(engine="mxu")`
+// (`jax.vmap(tcam_match_pallas)`).  blockIdx.z is the bank; the single-bank
+// call is the G = 1 launch.
 //
-// Computes, for every search word b and TCAM row r, walking the column
-// divisions d = 0..D-1 of width S in order:
+// Computes, for every bank g, search word b and TCAM row r, walking the
+// column divisions d = 0..D-1 of width S in order:
 //     mism  = sum over the division's cells of (x ? is0 : is1)
 //     match = mism <= kmax[r, d]
 // which is the TPU kernel's X·is0ᵀ + (1-X)·is1ᵀ for x in {0,1}.  A CELL_MM
-// cell sets both planes and so mismatches either input bit.  A row is
-// evaluated in division d iff it matched every earlier division.  Outputs
-// survive[b, r] and evals[b, r], both int32, row-major (B, R).
+// cell sets both planes and so mismatches either input bit; kmax = -1 never
+// matches and kmax = S always does.  A row is evaluated in division d iff
+// it matched every earlier division.  Outputs survive[g, b, r] and
+// evals[g, b, r] (divisions evaluated, unclamped), int32, row-major.
 //
-// Banked entry (dt2cam_tcam_match_banked) replaces the forest's launch of the
-// same TPU kernel, src/repro/kernels/banked.py `tcam_match_banked` (engine
-// "mxu": `jax.vmap(tcam_match_pallas)`, one pallas_call over G same-shape
-// banks).  blockIdx.z is the bank: each block offsets every operand by its
-// bank's slab (x by g*B*W, the planes by g*R*W, kmax by g*R*D, the outputs
-// by g*B*R; all in size_t, since G*B*R passes 2^31 at forest scale).  The
-// single-bank entry is the G = 1 launch of the same kernels.  Stacking pad
-// rows carry kmax = -1 and die in division 0 with evals 1; pad divisions
-// are all-don't-care and match.  Evals are not clamped to a bank's real
-// division count: the caller does that.
+// Operands (made by the two pack entries below, whose plain versions are
+// repro_torch/kernels/ref.py `pack_words` and `pack_planes`):
+//   planes (G, D, R, 2·SW) uint32, SW = ceil(S/32): for each (division,
+//          row) the SW words of is0 then the SW words of is1, one bit per
+//          cell, little-endian as `ref.pack_bits` (bit i of word j = cell
+//          32j+i of the division); a division narrower than SW·32 cells is
+//          zero-padded, and a zero bit in both planes never mismatches;
+//   kmax_t (G, D, R) int32, kmax transposed;
+//   xw     (G, D, Bp, SW) uint32, the search words packed the same way,
+//          Bp = B rounded up to 4 so that every division's slab of words
+//          starts 16-byte aligned.
+// The mismatch count is then sum popc((x & P0) | (~x & P1)): one LOP3 and
+// one POPC per 32 cells, exact for CELL_MM.
 //
-// What bounds it on this card: bytes.  The two (B, R) int32 outputs are
-// 8 bytes per (b, r) pair, 825 MB at the Give Me Some Credit layout
-// (B = 12027, R = 8576), against 43 MB per uint8 plane; the arithmetic per
-// evaluated division is a few integer operations per 4 cells, and almost
-// every row of a decision-tree TCAM fails its first or second division.
+// What bounds it on this card: the bytes of the two int32 outputs, 8 bytes
+// per (g, b, r) pair (825 MB at the Give Me Some Credit tree, 9.85 GB for
+// the credit forest's two groups), then the popcounts (one per 32 cells per
+// evaluated triple, 16 per clock per SM).  The operands are small beside
+// them: the credit tree's planes are 10.7 MB packed and stay in the 50 MB L2.
 //
 // What the design does about it:
-//  * The planes and search words are uint8 {0,1}, not the TPU path's f32:
-//    4x fewer bytes.  Four cells share one 32-bit word, and one
-//    __popc((x & is0) | (~x & is1)) counts their mismatches.
-//  * The TPU kernel keeps the precharge carry in a revisited output block
-//    across a sequential grid axis.  Blocks on this card run in no order, so
-//    the division loop is inside the thread: one thread owns one row r and
-//    walks the divisions for each search word of its block's batch tile.
-//  * The thread stops at its first mismatching division.  That is exact:
-//    after it the row is inactive, evals stops growing and survive stays 0.
-//    A TPU cannot branch per element; here it removes nearly all the work,
-//    leaving the output stores, which are coalesced (consecutive threads own
-//    consecutive rows r of one output row b).
-//  * Division 0, which every pair evaluates, keeps its plane bytes in
-//    registers for the whole batch tile (S = 128: 16 uint4).  Search words
-//    are read with 16-byte loads that every thread of a warp shares.
-//  * kmax = -1 never matches (mism >= 0); a fully masked division has
-//    kmax = S and always matches.  Ragged B and R edges are masked here, so
-//    the caller pads nothing.
+//  * Bit-packed operands, 8x fewer bytes than the uint8 planes they replace
+//    and 8x fewer popcounts (one per 32 cells, not per 4).  Division-major
+//    planes put one (row, division) in 2·SW consecutive words (one 32-byte
+//    sector at S = 128), so a warp's 32 rows read one contiguous 1 KB per
+//    division, and a warp's kmax for a division is one 128-byte line.
+//  * Divisions in the outer loop over a tile of 128 rows (one thread each)
+//    x 64 search words.  The precharge carry is a live bitmask over the
+//    tile's words, two registers a thread.  A row's plane words and kmax for
+//    a division are loaded once per tile, one division ahead, not once per
+//    (word, division).  Division 0, which every pair evaluates, walks the
+//    words in step across the warp (shared-memory loads broadcast), eight
+//    words per unrolled step; a warp whose rows all have kmax < 0 (the
+//    stacking pad rows of a forest group, 45 % of its rows) skips it.
+//    Later divisions walk only each thread's live words (__ffs over the
+//    mask).  The block leaves the division loop when __syncthreads_or finds
+//    no live pair in it; a warp whose pairs are all dead walks nothing.
+//  * Search words: each division's words of the tile (Bb x SW x 4 bytes,
+//    1 KB at S = 128) are staged in shared memory with cp.async, double
+//    buffered, so division d+1 arrives while d is evaluated.  This was
+//    taken over loading the whole tile's words at once (39 KB at credit):
+//    18 KB of static shared memory a block, and __launch_bounds__(128, 8)
+//    holding registers to 64, let eight blocks (32 warps) share an SM, so
+//    one block's output stores overlap other blocks' popcounts.  A fully
+//    unrolled division 0, or 128-word tiles, needed more registers, fit
+//    half as many blocks an SM, and ran slower on the card.
+//  * Outputs: each pair's evals is recorded in shared memory (uint16) in
+//    the divisions after the first as it is evaluated; survive is the live
+//    bit after the loop.  At the end, for each word of the tile, the 128
+//    threads write 128 consecutive int32 of survive and of evals: coalesced
+//    and streaming (__stcs), so they do not evict the planes from L2.
+//  * Offsets into the (G, B, R) outputs and the operands are size_t:
+//    G·B·R passes 2^31 at forest scale.
+//  * S > 128 (SW > 4) takes match_bits_any, a thread per row walking every
+//    word of its tile with no staging: the same operands and results, for
+//    division widths the tiled kernel does not unroll.  Every shape of the
+//    repo's configurations (S in 16..128) takes the tiled kernel.
+//  * The search words are packed per call on the card: where S % 32 == 0
+//    and rows are 16-byte aligned by pack_kernel_wide (a 16-byte load per
+//    thread, two threads per word), else by pack_kernel (one __ballot_sync
+//    per 32 cells).  The planes are packed the same way, once per layout.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -55,176 +86,413 @@
 
 namespace {
 
-constexpr int kRowsPerBlock = 128;   // threads per block, one TCAM row each
-constexpr int kBatchPerBlock = 32;   // search words walked by each thread
+constexpr int kRows = 128;            // threads per block, one TCAM row each
+constexpr int kWords = 64;            // search words per block
+constexpr int kMasks = kWords / 32;   // live-mask registers per thread
+constexpr int kMinBlocks = 8;         // blocks an SM: at most 64 registers
+constexpr int kUnroll0 = 8;           // division-0 words per unrolled step
+constexpr int kMaxTiledSW = 4;        // S <= 128 takes the tiled kernel
 
-// Bytes of x, a and b are 0 or 1: counts the bytes where (x ? a : b) is 1.
-__device__ __forceinline__ int sel_popc(uint32_t x, uint32_t a, uint32_t b) {
-  return __popc((x & a) | ((x ^ 0x01010101u) & b));
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
 }
 
-__device__ __forceinline__ int sel_popc4(const uint4& x, const uint4& a,
-                                         const uint4& b) {
-  return sel_popc(x.x, a.x, b.x) + sel_popc(x.y, a.y, b.y) +
-         sel_popc(x.z, a.z, b.z) + sel_popc(x.w, a.w, b.w);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ uint4 ldg16(const uint8_t* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// S (a multiple of 16) known at compile time; rows 16-byte aligned.
-template <int S>
-__global__ void __launch_bounds__(kRowsPerBlock)
-tcam_match_kernel(const uint8_t* __restrict__ x,
-                  const uint8_t* __restrict__ is0,
-                  const uint8_t* __restrict__ is1,
-                  const int32_t* __restrict__ kmax,
-                  int32_t* __restrict__ survive, int32_t* __restrict__ evals,
-                  int B, int R, int W, int D) {
-  constexpr int kChunks = S / 16;
-  const int r = blockIdx.x * kRowsPerBlock + threadIdx.x;
-  if (r >= R) return;
-  const int b0 = blockIdx.y * kBatchPerBlock;
-  const int nb = min(kBatchPerBlock, B - b0);
-  const size_t g = blockIdx.z;
-  x += g * B * W;
-  survive += g * B * R;
-  evals += g * B * R;
-  const size_t row = g * R + r;
-  const uint8_t* p0 = is0 + row * W;
-  const uint8_t* p1 = is1 + row * W;
-  const int32_t* kr = kmax + row * D;
-
-  uint4 a0[kChunks], c0[kChunks];
+// n consecutive 32-bit words from 8-byte (n odd) or 16-byte (n even)
+// aligned memory.
+template <int N>
+__device__ __forceinline__ void load_words(uint32_t (&w)[N],
+                                           const uint32_t* p) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    a0[c] = ldg16(p0 + 16 * c);
-    c0[c] = ldg16(p1 + 16 * c);
-  }
-  const int k0 = __ldg(kr);
-
-  for (int i = 0; i < nb; ++i) {
-    const uint8_t* xb = x + static_cast<size_t>(b0 + i) * W;
-    int m = 0;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) m += sel_popc4(ldg16(xb + 16 * c), a0[c], c0[c]);
-    int ev = 1;
-    bool alive = m <= k0;
-    for (int d = 1; alive && d < D; ++d) {
-      const int off = d * S;
-      m = 0;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const int o = off + 16 * c;
-        m += sel_popc4(ldg16(xb + o), ldg16(p0 + o), ldg16(p1 + o));
-      }
-      ++ev;
-      alive = m <= __ldg(kr + d);
+    for (int i = 0; i < N / 4; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = v.x, w[4 * i + 1] = v.y, w[4 * i + 2] = v.z,
+      w[4 * i + 3] = v.w;
     }
-    const size_t o = static_cast<size_t>(b0 + i) * R + r;
-    survive[o] = alive ? 1 : 0;
-    evals[o] = ev;
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const uint2 v = reinterpret_cast<const uint2*>(p)[i];
+      w[2 * i] = v.x, w[2 * i + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) w[i] = p[i];
   }
 }
 
-// Any division width or alignment: one byte per cell.
-__global__ void __launch_bounds__(kRowsPerBlock)
-tcam_match_kernel_any(const uint8_t* __restrict__ x,
-                      const uint8_t* __restrict__ is0,
-                      const uint8_t* __restrict__ is1,
-                      const int32_t* __restrict__ kmax,
-                      int32_t* __restrict__ survive,
-                      int32_t* __restrict__ evals, int B, int R, int W, int S) {
-  const int r = blockIdx.x * kRowsPerBlock + threadIdx.x;
-  if (r >= R) return;
-  const int D = W / S;
-  const int b0 = blockIdx.y * kBatchPerBlock;
-  const int nb = min(kBatchPerBlock, B - b0);
+template <int SW>
+__device__ __forceinline__ void load_row(uint32_t (&w)[2 * SW],
+                                         const uint32_t* p) {
+  if constexpr (SW % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < SW / 2; ++i) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
+      w[4 * i] = v.x, w[4 * i + 1] = v.y, w[4 * i + 2] = v.z,
+      w[4 * i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < SW; ++i) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p) + i);
+      w[2 * i] = v.x, w[2 * i + 1] = v.y;
+    }
+  }
+}
+
+// `chunks` 16-byte copies of one division's words of the tile into shared
+// memory, as one commit group (empty past the last division, so that
+// wait_group counts stay in step).
+__device__ __forceinline__ void stage(uint32_t* dst, const uint32_t* src,
+                                      int chunks) {
+  for (int c = threadIdx.x; c < chunks; c += kRows)
+    cp_async16(dst + 4 * c, src + 4 * c);
+  cp_async_commit();
+}
+
+// Mismatches of one search word's division against one row's planes.
+template <int SW>
+__device__ __forceinline__ int mismatches(const uint32_t (&x)[SW],
+                                          const uint32_t (&p)[2 * SW]) {
+  int m = 0;
+#pragma unroll
+  for (int k = 0; k < SW; ++k) m += __popc((x[k] & p[k]) | (~x[k] & p[SW + k]));
+  return m;
+}
+
+// Bits of mask word c that index words < nb of the tile.
+__device__ __forceinline__ uint32_t tile_bits(int c, int nb) {
+  const int n = nb - 32 * c;
+  return n >= 32 ? 0xffffffffu : (n <= 0 ? 0u : (1u << n) - 1u);
+}
+
+template <int SW>
+__global__ void __launch_bounds__(kRows, kMinBlocks)
+match_bits_kernel(const uint32_t* __restrict__ xw,       // (G, D, Bp, SW)
+                  const uint32_t* __restrict__ planes,   // (G, D, R, 2SW)
+                  const int32_t* __restrict__ kt,        // (G, D, R)
+                  int32_t* __restrict__ survive,         // (G, B, R)
+                  int32_t* __restrict__ evals,           // (G, B, R)
+                  int B, int Bp, int R, int D) {
+  __shared__ __align__(16) uint32_t xs[2][kWords * SW];
+  __shared__ uint16_t ev[kWords][kRows];
+
+  const int t = threadIdx.x;
+  const int r = blockIdx.x * kRows + t;
+  const bool row_ok = r < R;
+  const int b0 = blockIdx.y * kWords;
+  const int nb = min(kWords, B - b0);
+  const int chunks = min(kWords, Bp - b0) * SW / 4;   // 16-byte copies
   const size_t g = blockIdx.z;
-  x += g * B * W;
-  survive += g * B * R;
-  evals += g * B * R;
-  const size_t row = g * R + r;
-  const uint8_t* p0 = is0 + row * W;
-  const uint8_t* p1 = is1 + row * W;
-  const int32_t* kr = kmax + row * D;
+  const size_t x_div = static_cast<size_t>(Bp) * SW;  // words per division
+  const size_t p_div = static_cast<size_t>(R) * 2 * SW;
+  const uint32_t* xg = xw + g * D * x_div + static_cast<size_t>(b0) * SW;
+  const uint32_t* pg = planes + g * D * p_div + static_cast<size_t>(r) * 2 * SW;
+  const int32_t* kg = kt + g * D * R + r;
+
+  stage(xs[0], xg, chunks);
+  stage(xs[1], xg + x_div, D > 1 ? chunks : 0);
+  uint32_t cur[2 * SW], nxt[2 * SW];
+#pragma unroll
+  for (int w = 0; w < 2 * SW; ++w) cur[w] = nxt[w] = 0;
+  int kmax = -1, knxt = -1;   // rows past R never match
+  if (row_ok) {
+    load_row<SW>(cur, pg);
+    kmax = __ldg(kg);
+    if (D > 1) {
+      load_row<SW>(nxt, pg + p_div);
+      knxt = __ldg(kg + R);
+    }
+  }
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // Division 0: every pair is evaluated; the warp walks the words in step.
+  // A warp whose rows all have kmax < 0 (stacking pad rows, past R) cannot
+  // match and skips the popcounts.
+  uint32_t live[kMasks], live0[kMasks];
+  const bool warp_can_match = __any_sync(0xffffffffu, kmax >= 0);
+#pragma unroll
+  for (int c = 0; c < kMasks; ++c) {
+    uint32_t m = 0;
+    if (warp_can_match) {
+#pragma unroll kUnroll0
+      for (int j = 0; j < 32; ++j) {
+        uint32_t x[SW];
+        load_words<SW>(x, &xs[0][(32 * c + j) * SW]);
+        m |= static_cast<uint32_t>(mismatches<SW>(x, cur) <= kmax) << j;
+      }
+    }
+    live[c] = live0[c] = m & tile_bits(c, nb);
+  }
+
+  for (int d = 1; d < D; ++d) {
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < kMasks; ++c) any |= live[c] != 0;
+    // Every thread is done with division d-1, so xs[(d+1) & 1] is free.
+    if (!__syncthreads_or(any)) break;
+    stage(xs[(d + 1) & 1], xg + static_cast<size_t>(d + 1) * x_div,
+          d + 1 < D ? chunks : 0);
+#pragma unroll
+    for (int w = 0; w < 2 * SW; ++w) cur[w] = nxt[w];
+    kmax = knxt;
+    if (row_ok && d + 1 < D) {
+      load_row<SW>(nxt, pg + static_cast<size_t>(d + 1) * p_div);
+      knxt = __ldg(kg + static_cast<size_t>(d + 1) * R);
+    }
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint32_t* xd = xs[d & 1];
+#pragma unroll
+    for (int c = 0; c < kMasks; ++c) {
+      uint32_t todo = live[c];
+      while (todo) {
+        const int j = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int i = 32 * c + j;
+        uint32_t x[SW];
+        load_words<SW>(x, xd + i * SW);
+        if (mismatches<SW>(x, cur) > kmax) live[c] &= ~(1u << j);
+        ev[i][t] = static_cast<uint16_t>(d + 1);
+      }
+    }
+  }
+  cp_async_wait<0>();   // no copy may land after the block has left
+  if (!row_ok) return;
+
+  // A pair dead after division 0 was evaluated once; one alive after it was
+  // evaluated in every division up to the one recorded in ev.
+  const size_t o = (g * B + b0) * static_cast<size_t>(R) + r;
+#pragma unroll
+  for (int c = 0; c < kMasks; ++c) {
+    for (int j = 0; j < 32; ++j) {
+      const int i = 32 * c + j;
+      if (i >= nb) break;
+      const size_t oi = o + static_cast<size_t>(i) * R;
+      const bool past0 = D > 1 && ((live0[c] >> j) & 1u);
+      __stcs(survive + oi, static_cast<int32_t>((live[c] >> j) & 1u));
+      __stcs(evals + oi, past0 ? static_cast<int32_t>(ev[i][t]) : 1);
+    }
+  }
+}
+
+// Any division width: a thread per row walks each word of its tile through
+// the divisions, reading the packed operands from global memory.
+__global__ void __launch_bounds__(kRows)
+match_bits_any(const uint32_t* __restrict__ xw,
+               const uint32_t* __restrict__ planes,
+               const int32_t* __restrict__ kt, int32_t* __restrict__ survive,
+               int32_t* __restrict__ evals, int B, int Bp, int R, int D,
+               int SW) {
+  const int r = blockIdx.x * kRows + threadIdx.x;
+  if (r >= R) return;
+  const int b0 = blockIdx.y * kWords;
+  const int nb = min(kWords, B - b0);
+  const size_t g = blockIdx.z;
   for (int i = 0; i < nb; ++i) {
-    const uint8_t* xb = x + static_cast<size_t>(b0 + i) * W;
+    const int b = b0 + i;
     int ev = 0;
     bool alive = true;
     for (int d = 0; alive && d < D; ++d) {
+      const size_t gd = g * D + d;
+      const uint32_t* x = xw + (gd * Bp + b) * SW;
+      const uint32_t* p = planes + (gd * R + r) * 2 * SW;
       int m = 0;
-      for (int c = d * S; c < (d + 1) * S; ++c)
-        m += __ldg(xb + c) ? __ldg(p0 + c) : __ldg(p1 + c);
+      for (int k = 0; k < SW; ++k)
+        m += __popc((__ldg(x + k) & __ldg(p + k)) |
+                    (~__ldg(x + k) & __ldg(p + SW + k)));
       ++ev;
-      alive = m <= __ldg(kr + d);
+      alive = m <= __ldg(kt + gd * R + r);
     }
-    const size_t o = static_cast<size_t>(b0 + i) * R + r;
-    survive[o] = alive ? 1 : 0;
-    evals[o] = ev;
+    const size_t o = (g * B + b) * static_cast<size_t>(R) + r;
+    __stcs(survive + o, alive ? 1 : 0);
+    __stcs(evals + o, ev);
   }
 }
 
-template <int S>
-void launch(dim3 grid, cudaStream_t stream, const uint8_t* x,
-            const uint8_t* is0, const uint8_t* is1, const int32_t* kmax,
-            int32_t* survive, int32_t* evals, int B, int R, int W) {
-  tcam_match_kernel<S><<<grid, kRowsPerBlock, 0, stream>>>(
-      x, is0, is1, kmax, survive, evals, B, R, W, W / S);
+// Packs rows of {0,1} bytes at one bit per cell, division by division: one
+// warp per (row, division, bank) = (blockIdx.x·8 + warp, blockIdx.y,
+// blockIdx.z), one __ballot_sync per 32 cells (lane l holds cell 32k+l of
+// the division, which lands at bit l of word k).  Reads G banks of `rows`
+// rows of W bytes from a (and b, when not null); writes out (G, D,
+// rows_pad, np·SW) with np = 2 when b is given, a's words before b's.
+// Rows from `rows` to rows_pad are zero.
+constexpr int kPackWarps = 8;   // warps (rows) per block of the pack kernel
+
+__global__ void __launch_bounds__(32 * kPackWarps)
+pack_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
+            uint32_t* __restrict__ out, int rows, int rows_pad, int W, int S,
+            int SW) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kPackWarps + (threadIdx.x >> 5);
+  if (row >= rows_pad) return;   // whole warps leave together
+  const int d = blockIdx.y;
+  const size_t g = blockIdx.z;
+  const bool real = row < rows;
+  const size_t src = (g * rows + row) * static_cast<size_t>(W) +
+                     static_cast<size_t>(d) * S;
+  const int np = b ? 2 : 1;
+  const int nq = np * SW;
+  // Word q = p·SW + k lands in lane q % 32; every 32 words (or the last
+  // few) are stored together, coalesced.
+  uint32_t* dst = out + ((g * gridDim.y + d) * rows_pad + row) * nq;
+  uint32_t mine = 0;
+  for (int p = 0, q = 0; p < np; ++p) {
+    const uint8_t* cells = (p ? b : a) + src;
+#pragma unroll 4
+    for (int k = 0; k < SW; ++k, ++q) {
+      const int c = 32 * k + lane;
+      const uint32_t word =
+          __ballot_sync(0xffffffffu, real && c < S && cells[c] != 0);
+      if (lane == (q & 31)) mine = word;
+      if ((q & 31) == 31 || q == nq - 1) {
+        if (lane <= (q & 31)) dst[(q & ~31) + lane] = mine;
+      }
+    }
+  }
+}
+
+// Four {0,1} bytes -> four bits, byte i to bit i: the multiplier moves
+// byte i's bit to bit 24 + i, and no two partial products meet below bit 28.
+__device__ __forceinline__ uint32_t nibble(uint32_t v) {
+  return ((v & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+__device__ __forceinline__ uint32_t half_word(const uint4& v) {
+  return nibble(v.x) | nibble(v.y) << 4 | nibble(v.z) << 8 |
+         nibble(v.w) << 12;
+}
+
+// The same packing where S % 32 == 0 and rows are 16-byte aligned: a thread
+// per 16 cells of a row (one 16-byte load), two neighbouring threads per
+// word.  blockIdx.z is the bank; threads past rows_pad·W/16 load and store
+// nothing but take part in the shuffle.
+__global__ void __launch_bounds__(256)
+pack_kernel_wide(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
+                 uint32_t* __restrict__ out, int rows, int rows_pad, int W,
+                 int S, int D) {
+  const unsigned per_row = W / 16;
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = i < static_cast<unsigned>(rows_pad) * per_row;
+  const int row = in ? i / per_row : 0;
+  const int h = i - row * per_row;   // 16-cell group within the row
+  const size_t g = blockIdx.z;
+  const int SW = S / 32;
+  const int np = b ? 2 : 1;
+  const size_t at = (g * rows + row) * static_cast<size_t>(W) + 16 * h;
+  const int j = h / 2;               // word within the row
+  const int d = j / SW;
+  uint32_t* dst = out + ((g * D + d) * rows_pad + row) * (np * SW) + (j - d * SW);
+  for (int p = 0; p < np; ++p) {
+    uint32_t half = 0;
+    if (in && row < rows)
+      half = half_word(__ldg(reinterpret_cast<const uint4*>((p ? b : a) + at)));
+    // W/16 is even, so the two halves of a word sit in lanes 2m, 2m+1.
+    const uint32_t high = __shfl_down_sync(0xffffffffu, half, 1);
+    if (in && (h & 1) == 0) dst[p * SW] = half | high << 16;
+  }
+}
+
+template <int SW>
+void launch_tiled(dim3 grid, cudaStream_t stream, const uint32_t* xw,
+                  const uint32_t* planes, const int32_t* kt, int32_t* sv,
+                  int32_t* ev, int B, int Bp, int R, int D) {
+  match_bits_kernel<SW><<<grid, kRows, 0, stream>>>(xw, planes, kt, sv, ev, B,
+                                                    Bp, R, D);
 }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+int launch_pack(const void* a, const void* b, void* out, int G, int rows,
+                int rows_pad, int W, int S, void* stream) {
+  if (G <= 0 || rows_pad <= 0 || W <= 0) return 0;
+  if (S <= 0 || W % S != 0 || rows > rows_pad) return cudaErrorInvalidValue;
+  const int D = W / S;
+  const int SW = (S + 31) / 32;
+  if (G > 65535 || D > 65535) return cudaErrorInvalidConfiguration;
+  const size_t groups = static_cast<size_t>(rows_pad) * (W / 16);
+  if (S % 32 == 0 && aligned16(a) && (b == nullptr || aligned16(b)) &&
+      groups < (1u << 31)) {
+    const dim3 grid(static_cast<unsigned>((groups + 255) / 256), 1, G);
+    pack_kernel_wide<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
+        static_cast<uint32_t*>(out), rows, rows_pad, W, S, D);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid((rows_pad + kPackWarps - 1) / kPackWarps, D, G);
+  pack_kernel<<<grid, 32 * kPackWarps, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
+      static_cast<uint32_t*>(out), rows, rows_pad, W, S, SW);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// G banks of the same shape: x (G, B, W) and is0, is1 (G, R, W) uint8 in
-// {0,1}; kmax (G, R, W/S) int32; survive and evals (G, B, R) int32 outputs.
-// All row-major and contiguous.  Launches on `stream`; returns
-// cudaGetLastError().
-extern "C" int dt2cam_tcam_match_banked(const void* x, const void* is0,
-                                        const void* is1, const void* kmax,
-                                        void* survive, void* evals, int G,
-                                        int B, int R, int W, int S,
-                                        void* stream) {
+// Search words x (G, B, W) uint8 {0,1} -> xw (G, W/S, Bp, SW) uint32;
+// rows B..Bp-1 are zero.
+extern "C" int dt2cam_pack_words(const void* x, void* xw, int G, int B,
+                                 int Bp, int W, int S, void* stream) {
+  return launch_pack(x, nullptr, xw, G, B, Bp, W, S, stream);
+}
+
+// Planes is0, is1 (G, R, W) uint8 {0,1} -> (G, W/S, R, 2·SW) uint32.
+extern "C" int dt2cam_pack_planes(const void* is0, const void* is1,
+                                  void* planes, int G, int R, int W, int S,
+                                  void* stream) {
+  return launch_pack(is0, is1, planes, G, R, R, W, S, stream);
+}
+
+// The match over G banks (grid axis z) on packed operands: xw (G, D, Bp,
+// SW), planes (G, D, R, 2·SW) uint32, kmax_t (G, D, R) int32; survive and
+// evals (G, B, R) int32 outputs.  All contiguous.  Launches on `stream`;
+// returns cudaGetLastError().
+extern "C" int dt2cam_tcam_match_bits(const void* xw, const void* planes,
+                                      const void* kmax_t, void* survive,
+                                      void* evals, int G, int B, int Bp,
+                                      int R, int D, int S, void* stream) {
   if (G <= 0 || B <= 0 || R <= 0) return 0;
-  if (S <= 0 || W <= 0 || W % S != 0) return cudaErrorInvalidValue;
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock,
-                  (B + kBatchPerBlock - 1) / kBatchPerBlock, G);
+  if (S <= 0 || D <= 0 || D > 65535 || Bp < B || Bp % 4 != 0)
+    return cudaErrorInvalidValue;
+  if (!aligned16(xw) || !aligned16(planes)) return cudaErrorMisalignedAddress;
+  const dim3 grid((R + kRows - 1) / kRows, (B + kWords - 1) / kWords, G);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
   auto* s = static_cast<cudaStream_t>(stream);
-  auto* xb = static_cast<const uint8_t*>(x);
-  auto* p0 = static_cast<const uint8_t*>(is0);
-  auto* p1 = static_cast<const uint8_t*>(is1);
-  auto* km = static_cast<const int32_t*>(kmax);
+  auto* x = static_cast<const uint32_t*>(xw);
+  auto* p = static_cast<const uint32_t*>(planes);
+  auto* k = static_cast<const int32_t*>(kmax_t);
   auto* sv = static_cast<int32_t*>(survive);
   auto* ev = static_cast<int32_t*>(evals);
-  // Every bank slab starts a multiple of W bytes past an aligned base, so
-  // W % 16 == 0 keeps each slab's rows 16-byte aligned too.
-  const bool vec = W % 16 == 0 && aligned16(x) && aligned16(is0) && aligned16(is1);
-  switch (vec ? S : 0) {
-    case 16: launch<16>(grid, s, xb, p0, p1, km, sv, ev, B, R, W); break;
-    case 32: launch<32>(grid, s, xb, p0, p1, km, sv, ev, B, R, W); break;
-    case 64: launch<64>(grid, s, xb, p0, p1, km, sv, ev, B, R, W); break;
-    case 128: launch<128>(grid, s, xb, p0, p1, km, sv, ev, B, R, W); break;
+  const int SW = (S + 31) / 32;
+  switch (SW) {
+    case 1: launch_tiled<1>(grid, s, x, p, k, sv, ev, B, Bp, R, D); break;
+    case 2: launch_tiled<2>(grid, s, x, p, k, sv, ev, B, Bp, R, D); break;
+    case 3: launch_tiled<3>(grid, s, x, p, k, sv, ev, B, Bp, R, D); break;
+    case 4: launch_tiled<4>(grid, s, x, p, k, sv, ev, B, Bp, R, D); break;
     default:
-      tcam_match_kernel_any<<<grid, kRowsPerBlock, 0, s>>>(xb, p0, p1, km, sv,
-                                                          ev, B, R, W, S);
+      match_bits_any<<<grid, kRows, 0, s>>>(x, p, k, sv, ev, B, Bp, R, D, SW);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// One bank: x (B, W) and is0, is1 (R, W) uint8 in {0,1}; kmax (R, W/S)
-// int32; survive and evals (B, R) int32 outputs.  The G = 1 launch of the
-// banked entry.
-extern "C" int dt2cam_tcam_match(const void* x, const void* is0,
-                                 const void* is1, const void* kmax,
-                                 void* survive, void* evals, int B, int R,
-                                 int W, int S, void* stream) {
-  return dt2cam_tcam_match_banked(x, is0, is1, kmax, survive, evals, 1, B, R,
-                                  W, S, stream);
+// Which kernel dt2cam_tcam_match_bits launches for division width S:
+// 1 for the tiled kernel, 0 for match_bits_any.
+extern "C" int dt2cam_match_bits_tiled(int S) {
+  return (S + 31) / 32 <= kMaxTiledSW ? 1 : 0;
 }
 
 extern "C" const char* dt2cam_error_string(int code) {

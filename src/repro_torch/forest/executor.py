@@ -103,7 +103,7 @@ class GroupRunner:
                  ops: BankedOperands, bucket: int) -> None:
         self.forest, self.group, self.ops, self.bucket = (forest, group, ops,
                                                           bucket)
-        device = ops.is0.device
+        device = ops.device
         size = group.n_banks * bucket * group.width
         on_card = device.type == "cuda"
         self._host = torch.empty(size, dtype=torch.uint8, pin_memory=on_card)

@@ -2,8 +2,9 @@
 bitplane one with a single-bank and a banked entry) and their plain PyTorch
 versions.
 
-  tcam_match.py  — bitplane kernel wrapper (engine 'mxu'; every cell state
-                   incl. SAF CELL_MM), csrc/tcam_match.cu
+  tcam_match.py  — bitplane kernel wrappers (engine 'mxu'; every cell state
+                   incl. SAF CELL_MM) and its pack kernel,
+                   csrc/tcam_match.cu
   tcam_packed.py — bit-packed popcount kernel wrapper (engine 'packed'),
                    csrc/tcam_packed.cu
   banked.py      — a forest group's banks at once: the bitplane kernel with
@@ -13,24 +14,33 @@ versions.
   ref.py         — plain PyTorch oracles both kernels are held against
   _cuda.py       — nvcc build at first use, ctypes loading and launching
 """
-from ._cuda import build_all
+from ._cuda import MATCH_PATH_LAUNCHES, build_all
 from .banked import (BANKED_ENGINES, BankedOperands, prepare_banked,
-                     run_banked, tcam_match_banked, tcam_match_banked_cuda,
+                     run_banked, tcam_match_banked,
+                     tcam_match_banked_bits_cuda, tcam_match_banked_cuda,
                      tcam_match_banked_plain)
 from .ops import (ENGINES, MatchOperands, finalize_result, prepare_match,
                   run_match, sa_kmax, select_engine, tcam_infer, tcam_match)
-from .ref import (pack_bits, popcount32, tcam_match_banked_ref,
-                  tcam_match_packed_ref, tcam_match_ref)
-from .tcam_match import tcam_match_cuda, tcam_match_plain
+from .ref import (pack_bits, pack_divisions, pack_planes, pack_words,
+                  popcount32, tcam_match_banked_ref, tcam_match_bits_ref,
+                  tcam_match_packed_ref, tcam_match_ref, words_per_division)
+from .tcam_match import (pack_planes_cuda, pack_words_cuda,
+                         tcam_match_bits_cuda, tcam_match_cuda,
+                         tcam_match_plain)
 from .tcam_packed import tcam_match_packed_cuda, tcam_match_packed_plain
 
 __all__ = [
-    "ENGINES", "MatchOperands", "build_all", "finalize_result",
+    "ENGINES", "MATCH_PATH_LAUNCHES", "MatchOperands", "build_all",
+    "finalize_result",
     "prepare_match", "run_match", "sa_kmax", "select_engine", "tcam_infer",
     "tcam_match", "pack_bits", "popcount32", "tcam_match_packed_ref",
     "tcam_match_ref", "tcam_match_cuda", "tcam_match_plain",
+    "tcam_match_bits_cuda", "tcam_match_bits_ref", "pack_divisions",
+    "pack_planes", "pack_words", "pack_planes_cuda", "pack_words_cuda",
+    "words_per_division",
     "tcam_match_packed_cuda", "tcam_match_packed_plain",
     "BANKED_ENGINES", "BankedOperands", "prepare_banked", "run_banked",
     "tcam_match_banked", "tcam_match_banked_cuda", "tcam_match_banked_plain",
+    "tcam_match_banked_bits_cuda",
     "tcam_match_banked_ref",
 ]

@@ -19,8 +19,12 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNEL_SOURCES", "build_all", "check_banked_args",
-           "check_match_args", "launch_banked", "launch_match", "load_kernel"]
+from .ref import words_per_division
+
+__all__ = ["KERNEL_SOURCES", "MATCH_PATH_LAUNCHES", "build_all",
+           "check_banked_args", "check_bits_args", "check_match_args",
+           "launch_match", "launch_match_bits", "launch_pack", "load_kernel",
+           "match_path"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -28,6 +32,10 @@ BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 KERNEL_SOURCES = ("tcam_match", "tcam_packed")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Launches of the bitplane match kernel by path: "tiled" (S <= 128, the
+# shared-memory tiled kernel) or "any" (wider divisions).
+MATCH_PATH_LAUNCHES = {"tiled": 0, "any": 0}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -148,6 +156,27 @@ def check_banked_args(x, is0, is1, kmax, s: int) -> torch.device:
     return dev
 
 
+def check_bits_args(x, planes, kmax_t, s: int) -> torch.device:
+    """Argument checks of the packed-operand entries: x (G, B, W) uint8,
+    planes (G, D, R, 2·SW) and kmax_t (G, D, R) int32, W = D·s; returns
+    the device."""
+    dev = x.device
+    _check(x, "xbits", torch.uint8, 3, dev)
+    _check(planes, "planes", torch.int32, 4, dev)
+    _check(kmax_t, "kmax_t", torch.int32, 3, dev)
+    g, _, w = x.shape
+    if s <= 0 or w % s:
+        raise ValueError(f"width {w} is not a multiple of {s}")
+    d, sw = w // s, words_per_division(s)
+    if planes.shape[:2] != (g, d) or planes.shape[3] != 2 * sw:
+        raise ValueError(f"planes shape {tuple(planes.shape)} != "
+                         f"{(g, d, 'R', 2 * sw)}")
+    if tuple(kmax_t.shape) != (g, d, planes.shape[2]):
+        raise ValueError(f"kmax_t shape {tuple(kmax_t.shape)} != "
+                         f"{(g, d, planes.shape[2])}")
+    return dev
+
+
 def _launch(fn_name: str, lib_name: str, out_shape: tuple, ptrs: tuple,
             ints: tuple, device: torch.device
             ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -162,11 +191,8 @@ def _launch(fn_name: str, lib_name: str, out_shape: tuple, ptrs: tuple,
                    + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(*ptrs, survive.data_ptr(), evals.data_ptr(), *ints, stream)
-    if rc != 0:
-        lib.dt2cam_error_string.restype = ctypes.c_char_p
-        msg = lib.dt2cam_error_string(ctypes.c_int(rc)).decode()
-        raise RuntimeError(f"{fn_name} launch failed: {msg} ({rc})")
+    _raise_on(lib, fn_name,
+              fn(*ptrs, survive.data_ptr(), evals.data_ptr(), *ints, stream))
     return survive, evals
 
 
@@ -179,12 +205,55 @@ def launch_match(fn_name: str, lib_name: str, x, a, b, kmax, width: int,
                    (n_b, n_r, width, division), x.device)
 
 
-def launch_banked(x, is0, is1, kmax, s: int
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the bitplane kernel over G banks (grid axis z); (G, B, R)
-    int32 outputs."""
-    (g, n_b, w), n_r = x.shape, is0.shape[1]
-    return _launch("dt2cam_tcam_match_banked", "tcam_match", (g, n_b, n_r),
-                   (x.data_ptr(), is0.data_ptr(), is1.data_ptr(),
-                    kmax.data_ptr()),
-                   (g, n_b, n_r, w, s), x.device)
+def _raise_on(lib: ctypes.CDLL, fn_name: str, rc: int) -> None:
+    if rc != 0:
+        lib.dt2cam_error_string.restype = ctypes.c_char_p
+        msg = lib.dt2cam_error_string(ctypes.c_int(rc)).decode()
+        raise RuntimeError(f"{fn_name} launch failed: {msg} ({rc})")
+
+
+def launch_pack(a: torch.Tensor, b, s: int, rows_pad: int) -> torch.Tensor:
+    """Pack (G, rows, W) uint8 {0,1} at one bit per cell, division-major:
+    ``b is None`` gives the search words (G, D, rows_pad, SW), else the
+    planes of a and b (G, D, rows, 2·SW), int32 bit patterns."""
+    g, rows, w = a.shape
+    sw = words_per_division(s)
+    shape = ((g, w // s, rows_pad, sw) if b is None
+             else (g, w // s, rows, 2 * sw))
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    lib = load_kernel("tcam_match")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if b is None:
+        fn_name, ptrs, ints = ("dt2cam_pack_words", (a.data_ptr(),),
+                               (g, rows, rows_pad, w, s))
+    else:
+        fn_name, ptrs, ints = ("dt2cam_pack_planes",
+                               (a.data_ptr(), b.data_ptr()), (g, rows, w, s))
+    fn = getattr(lib, fn_name)
+    fn.argtypes = ([ctypes.c_void_p] * (len(ptrs) + 1)
+                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _raise_on(lib, fn_name, fn(*ptrs, out.data_ptr(), *ints, stream))
+    return out
+
+
+def match_path(s: int) -> str:
+    """The bitplane kernel's path for division width ``s``, as the kernel's
+    own dispatch (``dt2cam_match_bits_tiled``) chooses it."""
+    tiled = load_kernel("tcam_match").dt2cam_match_bits_tiled
+    tiled.argtypes, tiled.restype = [ctypes.c_int], ctypes.c_int
+    return "tiled" if tiled(s) else "any"
+
+
+def launch_match_bits(xw: torch.Tensor, planes: torch.Tensor,
+                      kmax_t: torch.Tensor, n_b: int, s: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the bitplane kernel on packed operands, xw (G, D, Bp, SW),
+    planes (G, D, R, 2·SW), kmax_t (G, D, R); (G, n_b, R) int32 outputs."""
+    g, d, bp, _ = xw.shape
+    n_r = planes.shape[2]
+    out = _launch("dt2cam_tcam_match_bits", "tcam_match", (g, n_b, n_r),
+                  (xw.data_ptr(), planes.data_ptr(), kmax_t.data_ptr()),
+                  (g, n_b, bp, n_r, d, s), xw.device)
+    MATCH_PATH_LAUNCHES[match_path(s)] += 1
+    return out

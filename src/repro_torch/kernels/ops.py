@@ -2,10 +2,11 @@
 serving path (``tcam_infer``) that ``DT2CAM.infer`` and the server use.
 
 Engines:
-  'mxu'    — bitplane kernel (tcam_match.py, csrc/tcam_match.cu); handles
-             every cell state incl. SAF-induced CELL_MM.  The name is the JAX
-             package's, kept so that an engine request means the same thing
-             in both packages.
+  'mxu'    — bitplane kernel (tcam_match.py, csrc/tcam_match.cu) on planes
+             packed once per layout, division-major; handles every cell
+             state incl. SAF-induced CELL_MM.  The name is the JAX package's,
+             kept so that an engine request means the same thing in both
+             packages.
   'packed' — bit-packed popcount kernel (tcam_packed.py, csrc/tcam_packed.cu);
              requires S % 32 == 0 and no CELL_MM cells.
   'ref'    — the plain PyTorch oracle (ref.py), on whichever device is asked.
@@ -31,7 +32,7 @@ from ..core.simulate import SimResult, sense_voltage
 from ..core.synth import TCAMLayout
 from ..device import DeviceLike, resolve_device
 from .ref import pack_bits, tcam_match_ref
-from .tcam_match import tcam_match_cuda
+from .tcam_match import pack_planes_cuda, tcam_match_bits_cuda
 from .tcam_packed import tcam_match_packed_cuda
 
 __all__ = ["tcam_match", "tcam_infer", "sa_kmax", "select_engine",
@@ -70,13 +71,15 @@ def _on(a: ArrayLike, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class MatchOperands:
     """One layout's device-resident match operands for a resolved engine:
-    uint8 planes ``a = is0, b = is1`` for 'mxu' and 'ref', packed words
-    ``a = val, b = care`` for 'packed'; ``kmax`` is (R, D) int32."""
+    for 'mxu' the packed planes ``a`` (D, R, 2·SW) int32 (``ref.pack_planes``)
+    with ``b`` None and ``kmax`` transposed to (D, R); for 'packed' the
+    packed words ``a = val, b = care`` and for 'ref' the uint8 planes
+    ``a = is0, b = is1``, both with ``kmax`` (R, D) int32."""
 
     engine: str
     s: int
     a: torch.Tensor
-    b: torch.Tensor
+    b: Optional[torch.Tensor]
     kmax: torch.Tensor
 
 
@@ -102,6 +105,11 @@ def prepare_match(
     if engine == "packed":
         a = pack_bits(_on(is1, torch.uint8, dev))
         b = pack_bits(_on(is0 | is1, torch.uint8, dev))
+    elif engine == "mxu":
+        planes = pack_planes_cuda(_on(is0, torch.uint8, dev)[None],
+                                  _on(is1, torch.uint8, dev)[None], s=s)
+        return MatchOperands(engine=engine, s=s, a=planes[0], b=None,
+                             kmax=km.t().contiguous())
     else:
         a, b = _on(is0, torch.uint8, dev), _on(is1, torch.uint8, dev)
     return MatchOperands(engine=engine, s=s, a=a, b=b, kmax=km)
@@ -115,7 +123,7 @@ def run_match(ops: MatchOperands, xpad: torch.Tensor
         return tcam_match_packed_cuda(pack_bits(xpad), ops.a, ops.b, ops.kmax,
                                       s=ops.s)
     if ops.engine == "mxu":
-        return tcam_match_cuda(xpad, ops.a, ops.b, ops.kmax, s=ops.s)
+        return tcam_match_bits_cuda(xpad, ops.a, ops.kmax, s=ops.s)
     return tcam_match_ref(xpad, ops.a, ops.b, ops.s, ops.kmax)
 
 

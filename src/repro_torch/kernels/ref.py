@@ -27,6 +27,11 @@ Every version walks the divisions in order and carries the (B, R)
 
 Packed words are int32 bit patterns (PyTorch has no unsigned shifts on the
 CPU): bit ``i`` of word ``j`` is column ``32*j + i``.
+
+The bitplane kernel's operands are packed per division and division-major
+(``pack_words``, ``pack_planes``): each division's S cells fill SW =
+ceil(S/32) words, zero-padded; ``tcam_match_bits_ref`` is its arithmetic,
+``Σ popc((x & P0) | (~x & P1))`` per division.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ from typing import Optional
 import torch
 
 __all__ = ["tcam_match_ref", "tcam_match_banked_ref", "tcam_match_packed_ref",
-           "pack_bits", "popcount32"]
+           "tcam_match_bits_ref", "pack_bits", "pack_divisions", "pack_planes",
+           "pack_words", "popcount32", "words_per_division"]
 
 
 def _carry(mism_of, shape: tuple, d: int, limit_of,
@@ -170,3 +176,66 @@ def tcam_match_packed_ref(
 
     return _carry(mism, (b, r), w32 // sw, _limit_2d(kmax),
                   xpacked.device)
+
+
+def words_per_division(s: int) -> int:
+    """SW: the 32-bit words that hold one division of S cells."""
+    return -(-s // 32)
+
+
+def pack_divisions(bits: torch.Tensor, s: int) -> torch.Tensor:
+    """(..., W) {0,1} -> (..., W // s, SW) int32: each division of S cells
+    packed as ``pack_bits`` packs, zero-padded to SW·32 bits.  Where
+    S % 32 == 0 this is ``pack_bits(bits)`` with its last axis split."""
+    *lead, w = bits.shape
+    if w % s:
+        raise ValueError(f"width {w} is not a multiple of S={s}")
+    divs = bits.reshape(*lead, w // s, s)
+    pad = 32 * words_per_division(s) - s
+    if pad:
+        divs = torch.nn.functional.pad(divs, (0, pad))
+    return pack_bits(divs)
+
+
+def pack_words(xbits: torch.Tensor, s: int) -> torch.Tensor:
+    """Search words (..., B, W) {0,1} -> (..., D, Bp, SW) int32, division-
+    major, with B rounded up to Bp, a multiple of 4, by zero words (the
+    kernel stages each division's words in 16-byte copies)."""
+    b = xbits.shape[-2]
+    words = pack_divisions(xbits, s).transpose(-3, -2)
+    return torch.nn.functional.pad(words, (0, 0, 0, -b % 4)).contiguous()
+
+
+def pack_planes(is0: torch.Tensor, is1: torch.Tensor, s: int) -> torch.Tensor:
+    """Bitplanes (..., R, W) {0,1} -> (..., D, R, 2·SW) int32, division-
+    major: for each (division, row) is0's SW words, then is1's."""
+    both = torch.cat((pack_divisions(is0, s), pack_divisions(is1, s)), dim=-1)
+    return both.transpose(-3, -2).contiguous()
+
+
+def tcam_match_bits_ref(
+    xw: torch.Tensor,       # (..., D, Bp, SW) int32, from pack_words
+    planes: torch.Tensor,   # (..., D, R, 2·SW) int32, from pack_planes
+    kmax_t: torch.Tensor,   # (..., D, R) int32, kmax transposed
+    b: int,                 # search words (the first b of Bp)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bitplane kernel's arithmetic on its packed operands: a division's
+    mismatch count is ``Σ popc((x & P0) | (~x & P1))`` over its SW words
+    (a CELL_MM cell sets both bits and mismatches either input), then the
+    same carry as ``tcam_match_ref``.  Returns (survive, evals), both
+    (..., b, R) int32."""
+    sw = xw.shape[-1]
+    d, r = planes.shape[-3], planes.shape[-2]
+    if planes.shape[-1] != 2 * sw or xw.shape[-3] != d:
+        raise ValueError(f"packed shapes disagree: words {tuple(xw.shape)}, "
+                         f"planes {tuple(planes.shape)}")
+    x = xw[..., :b, :]
+
+    def mism(j: int) -> torch.Tensor:
+        xd = x[..., j, :, None, :]                  # (..., b, 1, SW)
+        pd = planes[..., j, None, :, :]             # (..., 1, R, 2·SW)
+        cells = (xd & pd[..., :sw]) | (~xd & pd[..., sw:])
+        return popcount32(cells).sum(dim=-1, dtype=torch.int32)
+
+    return _carry(mism, (*xw.shape[:-3], b, r), d,
+                  lambda j: kmax_t[..., j, None, :], xw.device)

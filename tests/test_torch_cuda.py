@@ -12,6 +12,12 @@ last division (kmax = S).  The banked entry of the bitplane kernel (a bank
 grid axis) runs the same sweep over G = 1 and 3 stacked banks of unequal
 size, with pad rows (kmax -1) and an all-don't-care pad division, and once
 at more than 2^31 output elements.
+
+The bitplane kernel runs on bit-packed, division-major operands: the pack
+kernel against ``pack_bits`` and the plain packing, the prepacked entries
+(the main path's) against the uint8 ones, tile-edge shapes (B and R one
+either side of the 128 x 128 tile), a case of divergent warps, and the
+launch counts by path.
 """
 import numpy as np
 import pytest
@@ -103,6 +109,8 @@ def test_packed_kernel_equals_plain_on_card(cuda, rows, width, s, b, kind):
 
 @pytest.mark.gpu
 def test_bitplane_kernel_unaligned_rows_take_the_byte_path(cuda):
+    """S = 24: uint8 rows that are not 16-byte aligned, which the packing
+    takes through its ballot kernel and pads to one word a division."""
     x, is0, is1, km = _kernel_operands(40, 70, 24, 33, "mixed", True, cuda)
     got = tk.tcam_match_cuda(x, is0, is1, km, s=24)
     want = tk.tcam_match_plain(x, is0, is1, 24, km)
@@ -170,6 +178,7 @@ def test_banked_kernel_at_one_bank_equals_the_single_bank_kernel(
 
 @pytest.mark.gpu
 def test_banked_kernel_unaligned_rows_take_the_byte_path(cuda):
+    """As the single-bank case, over three banks."""
     x, is0, is1, km = _banked_operands(40, 70, 24, 33, 3, "mixed", cuda)
     got = tk.tcam_match_banked_cuda(x, is0, is1, km, s=24)
     want = tk.tcam_match_banked_plain(x, is0, is1, 24, km)
@@ -203,3 +212,160 @@ def test_banked_kernel_past_two_to_the_31_output_elements(cuda):
     assert torch.equal(survive[-1:], want[0])
     assert torch.equal(evals[-1:], want[1])
     assert 0 < int(want[0].sum()) < b * r and int((want[1] == 2).sum()) > 0
+
+
+# -- the bit-packed operands -----------------------------------------------
+TILE = 128   # rows and search words of one block of the bitplane kernel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [16, 24, 32, 64, 96, 128, 160])
+@pytest.mark.parametrize("g,b,w_divs", [(1, 1, 1), (3, 37, 5), (2, 130, 39)])
+def test_pack_kernel_equals_pack_bits(cuda, s, g, b, w_divs):
+    gen = torch.Generator(device=cuda).manual_seed(s + b)
+    x = torch.randint(0, 2, (g, b, w_divs * s), device=cuda, generator=gen,
+                      dtype=torch.uint8)
+    before = tk.pack_words_cuda.launches
+    xw = tk.pack_words_cuda(x, s=s)
+    torch.cuda.synchronize()
+    assert tk.pack_words_cuda.launches == before + 1
+    assert torch.equal(xw, tk.pack_words(x, s))
+    if s % 32 == 0:
+        want = tk.pack_bits(x).view(g, b, w_divs, s // 32).transpose(1, 2)
+        assert torch.equal(xw[:, :, :b], want)
+    p1 = torch.randint(0, 2, x.shape, device=cuda, generator=gen,
+                       dtype=torch.uint8)
+    assert torch.equal(tk.pack_planes_cuda(x, p1, s=s),
+                       tk.pack_planes(x, p1, s))
+
+
+def _prepacked(x, is0, is1, km, s):
+    return (tk.pack_planes_cuda(is0[None], is1[None], s=s)[0],
+            km.t().contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["zero", "pos", "mixed", "masked"])
+@pytest.mark.parametrize("rows,width,s,b", SWEEP + [(1000, 500, 128, 300)])
+def test_prepacked_entry_equals_uint8_entry(cuda, rows, width, s, b, kind):
+    x, is0, is1, km = _kernel_operands(rows, width, s, b, kind, True, cuda)
+    planes, kt = _prepacked(x, is0, is1, km, s)
+    before = tk.tcam_match_bits_cuda.launches
+    got = tk.tcam_match_bits_cuda(x, planes, kt, s=s)
+    torch.cuda.synchronize()
+    assert tk.tcam_match_bits_cuda.launches == before + 1
+    want = tk.tcam_match_cuda(x, is0, is1, km, s=s)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(got, tk.tcam_match_plain(x, is0, is1, s, km)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [32, 128])
+@pytest.mark.parametrize("b", [TILE - 1, TILE, TILE + 1])
+@pytest.mark.parametrize("rows", [TILE - 1, TILE + 1])
+def test_bitplane_kernel_at_tile_edges(cuda, rows, b, s):
+    """Random cells (CELL_MM included) and kmax in {-1, 0, 1, S}, with B and
+    R one either side of the kernel's 128 x 128 tile, single and banked."""
+    d = 4
+    gen = torch.Generator(device=cuda).manual_seed(rows + b + s)
+    cells = torch.randint(0, 4, (rows, d * s), device=cuda, generator=gen)
+    is0 = ((cells == 0) | (cells == 3)).to(torch.uint8)
+    is1 = ((cells == 1) | (cells == 3)).to(torch.uint8)
+    is0[cells == 2], is1[cells == 2] = 0, 0
+    x = torch.randint(0, 2, (b, d * s), device=cuda, generator=gen,
+                      dtype=torch.uint8)
+    choice = torch.tensor([-1, 0, 1, s], dtype=torch.int32, device=cuda)
+    km = choice[torch.randint(0, 4, (rows, d), device=cuda, generator=gen)]
+    km[:, 0] = s // 2 + 8          # most pairs reach division 1
+    got = tk.tcam_match_cuda(x, is0, is1, km, s=s)
+    want = tk.tcam_match_plain(x, is0, is1, s, km)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    xb, i0, i1, kb = (t[None].expand(3, *t.shape).contiguous()
+                      for t in (x, is0, is1, km))
+    got = tk.tcam_match_banked_cuda(xb, i0, i1, kb, s=s)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w[None].expand_as(g))
+
+
+@pytest.mark.gpu
+def test_bitplane_kernel_divergent_warps(cuda):
+    """Row 5 of every warp always matches (kmax = S) while its neighbours
+    die in division 0 (kmax = -1); row 7 holds word 3's bits exactly
+    (kmax = 0), and word b shares its first b % D divisions with word 3, so
+    one word of the tile survives while the others die, each in its own
+    division."""
+    s, d, b, r = 32, 6, 2 * TILE + 3, 2 * TILE + 9
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    base = torch.randint(0, 2, (d * s,), device=cuda, generator=gen,
+                         dtype=torch.uint8)
+    x = torch.randint(0, 2, (b, d * s), device=cuda, generator=gen,
+                      dtype=torch.uint8)
+    x[:, 0] = 1 - base[0]                    # every word differs in division 0
+    for i in range(b):
+        keep = (i % d) * s
+        x[i, :keep] = base[:keep]
+        if keep < d * s:
+            x[i, keep] = 1 - base[keep]       # and differs where its prefix ends
+    x[3] = base
+    lane = torch.arange(r, device=cuda) % 32
+    is0 = torch.zeros((r, d * s), dtype=torch.uint8, device=cuda)
+    is1 = torch.zeros_like(is0)
+    is0[lane == 7] = (base == 0).to(torch.uint8)
+    is1[lane == 7] = base
+    km = torch.full((r, d), -1, dtype=torch.int32, device=cuda)
+    km[lane == 5] = s
+    km[lane == 7] = 0
+    survive, evals = tk.tcam_match_cuda(x, is0, is1, km, s=s)
+    want = tk.tcam_match_plain(x, is0, is1, s, km)
+    assert torch.equal(survive, want[0]) and torch.equal(evals, want[1])
+    words = torch.arange(b, device=cuda)
+    expect_ev = torch.where(words == 3, d, words % d + 1).to(torch.int32)
+    assert torch.equal(evals[:, lane == 7], expect_ev[:, None].expand(
+        b, int((lane == 7).sum())))
+    assert torch.equal(survive[:, lane == 7].sum(0),
+                       torch.ones(int((lane == 7).sum()), dtype=torch.int64,
+                                  device=cuda))
+    assert bool((survive[:, lane == 5] == 1).all())
+    assert bool((evals[:, lane == 5] == d).all())
+    other = (lane != 5) & (lane != 7)
+    assert bool((survive[:, other] == 0).all())
+    assert bool((evals[:, other] == 1).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,s,path", [(4992, 128, "tiled"),    # credit tree
+                                      (2048, 128, "tiled"),    # forest group 1
+                                      (4096, 128, "tiled"),    # forest group 2
+                                      (320, 16, "tiled"),
+                                      (480, 160, "any"),
+                                      (512, 256, "any")])
+def test_bitplane_kernel_path_by_division_width(cuda, w, s, path):
+    rows, b = 300, 200
+    x, is0, is1, km = _kernel_operands(rows, w - 1, s, b, "mixed", True, cuda)
+    assert x.shape[1] == w
+    planes, kt = _prepacked(x, is0, is1, km, s)
+    before = dict(tk.MATCH_PATH_LAUNCHES)
+    got = tk.tcam_match_bits_cuda(x, planes, kt, s=s)
+    torch.cuda.synchronize()
+    assert tk.MATCH_PATH_LAUNCHES[path] == before[path] + 1
+    other = "any" if path == "tiled" else "tiled"
+    assert tk.MATCH_PATH_LAUNCHES[other] == before[other]
+    for g, w_ in zip(got, tk.tcam_match_plain(x, is0, is1, s, km)):
+        assert torch.equal(g, w_)
+
+
+@pytest.mark.gpu
+def test_banked_prepacked_entry_equals_uint8_entry(cuda):
+    x, is0, is1, km = _banked_operands(1000, 500, 128, 300, 3, "mixed", cuda)
+    planes = tk.pack_planes_cuda(is0, is1, s=128)
+    before = tk.tcam_match_banked_bits_cuda.launches
+    got = tk.tcam_match_banked_bits_cuda(x, planes,
+                                         km.transpose(1, 2).contiguous(),
+                                         s=128)
+    torch.cuda.synchronize()
+    assert tk.tcam_match_banked_bits_cuda.launches == before + 1
+    for g, w in zip(got, tk.tcam_match_banked_cuda(x, is0, is1, km, s=128)):
+        assert torch.equal(g, w)
