@@ -20,23 +20,28 @@ Phases (any failed check raises, so the script exits non-zero):
    through ``DT2CAM.infer`` (auto = mxu, equal to ref), and the covid
    dataset through ``DT2CAM.fit(...).infer(backend="torch")`` against the
    numpy oracle.  The kernels' launch counters are zeroed before this phase
-   and read after it;
+   and read after it: both kernels ran through their prepacked entries
+   only, on the tiled path, each launch after one word pack on the card;
 4. kernels at the credit shapes (B=12027, R=8576, W=4992, S=128, D=39), with
    an SA-variability kmax holding -1, 0 and >0: kernel == plain version
    (``torch.equal``), then CUDA-event medians of the kernel, the plain
    version and a PyTorch yardstick, beside the least time the card could
-   take (bytes over the card's memory rate, operations over its peak).  The
-   bitplane kernel is timed as the main path calls it: the prepacked entry
-   (``tcam_match_bits_cuda``: the pack kernel on the search words, then the
-   match) on operands from ``prepare_match``; its uint8 entry is held
-   against the plain version too.  For it the record adds evaluated
-   triples per second, output GB/s, the pack kernel's time and its
-   ``torch.equal`` against ``pack_bits``, the one-off plane pack at
-   prepare, the match alone and on division 0 only, the time the card
+   take: the largest of the bytes over the card's memory rate and each
+   pipe's operations (LOP3 and popcount, counted from this run's evals)
+   over its rate on this card.  Both kernels are timed as the main path
+   calls them: the prepacked entry (the pack kernel on the search words,
+   then the match) on operands from ``prepare_match``; the other entry
+   (uint8 planes, row-major packed words) is held against it.  Each record
+   adds evaluated triples per second, output GB/s, the pack kernel's time
+   and its ``torch.equal`` against ``pack_bits``, the one-off operand pack
+   at prepare, the match alone and on division 0 only, the time the card
    takes to write arrays of the outputs' size (the store floor), and
-   ``ptxas``'s registers, shared memory and spills;
+   ``ptxas``'s registers, shared memory and spills.  The packed row adds
+   the same call at kmax = 0 (the main path's operands), held against the
+   plain version and timed;
 5. serving: ``TCAMServer`` on credit, warmed up, serving 4096 test queries;
-   results equal ``tcam_infer``'s;
+   results equal ``tcam_infer``'s, through the packed kernel's prepacked
+   entry;
 6. forest: fit the credit forest (``train_forest`` defaults: 25 bagged
    trees at ``max_depth=12``, seed 0), compile at S=128 and plan it (two
    groups).  Main path: ``ForestExecutor(engine="mxu")`` on all 12,027 test
@@ -70,7 +75,11 @@ sys.path.insert(0, str(ROOT / "src"))
 # Peak memory rate by card (NVIDIA data sheets), bytes/s; the name decides.
 PEAK_BW = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
            ("H100", 3.35e12))
-PEAK_CUDA_CORE = 67e12       # non-tensor fp32 rate, H100 SXM (int32 ALU bound)
+# Results per clock per SM of the pipes the match kernels issue on, for
+# compute capability 9.0 (NVIDIA CUDA C++ Programming Guide, throughput of
+# native arithmetic instructions): 32-bit bitwise logic (LOP3) 64, 32-bit
+# population count 16.  Times the card's SM count and maximum SM clock.
+PIPE_PER_CLOCK_PER_SM = {"logic": 64, "popc": 16}
 SERVE_REQUESTS = 4096
 FOREST_DATASET = "credit"    # the forest phase: train_forest's defaults here,
 FOREST_TREES = 25            # 25 bagged trees at max_depth=12, seed 0,
@@ -130,22 +139,62 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def measure(kname: str, cases: list, launches: int, bw: float) -> dict:
+def pipe_rates() -> dict:
+    """Operations per second of each pipe in ``PIPE_PER_CLOCK_PER_SM`` on
+    this card: the SM count from PyTorch, the maximum SM clock from
+    nvidia-smi."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0]
+    clock = float(mhz) * 1e6
+    log(f"pipes: {sms} SMs at {clock / 1e9:.3f} GHz: " + ", ".join(
+        f"{k} {n * sms * clock / 1e12:.2f} T/s"
+        for k, n in PIPE_PER_CLOCK_PER_SM.items()))
+    return {k: n * sms * clock for k, n in PIPE_PER_CLOCK_PER_SM.items()}
+
+
+def bitplane_ops(evals, s: int) -> dict:
+    """The bitplane kernel's operations: per evaluated triple one LOP3 and
+    one popcount per word of the division."""
+    import torch
+    n = int(evals.sum(dtype=torch.int64)) * -(-s // 32)
+    return {"logic": n, "popc": n}
+
+
+def packed_ops(evals, kmax_t, s: int) -> dict:
+    """The packed kernel's operations: per evaluated triple one LOP3 per
+    word; popcounts only for triples whose division has kmax > 0, counted
+    on the card from evals and a per-row prefix count of kmax > 0."""
+    import torch
+    sw = s // 32
+    pos = (kmax_t > 0).to(torch.int64)                    # (D, R)
+    prefix = torch.cat((torch.zeros_like(pos[:1]), pos.cumsum(0)))
+    popc = torch.gather(prefix, 0, evals.long()).sum()    # (B, R) -> scalar
+    return {"logic": int(evals.sum(dtype=torch.int64)) * sw,
+            "popc": int(popc) * sw}
+
+
+def measure(kname: str, cases: list, launches: int, bw: float,
+            rates: dict) -> dict:
     """Hold a kernel against its plain version (``torch.equal``) and time
     both, with a PyTorch yardstick, at each of ``cases``: dicts with ``run``,
-    ``plain``, ``library`` (or None), ``inputs``, ``ops_per_eval``,
-    ``op_peak`` and ``shape``.  Times, bytes and bounds add up over the cases
-    (the launches one pass of the main path makes); ``bound_ms`` is the
-    larger of bytes over the memory rate and operations over the peak.
-    A case's optional ``extra(got)`` adds figures to its record."""
+    ``plain``, ``library`` (or None), ``inputs``, ``ops(got)`` (operations
+    by pipe of ``rates``) and ``shape``.  Times, bytes and bounds add up
+    over the cases (the launches one pass of the main path makes);
+    ``bound_ms`` is the largest of bytes over the memory rate and each
+    pipe's operations over its rate.  A case's optional ``extra(got)``
+    adds figures to its record."""
     import torch
     rec = {"name": kname, "route": "cuda", "source": SOURCES[kname],
            "replaces": REPLACES[kname], "launches": launches,
            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
            "bound_by": "bytes", "library_ms": None, "bytes": 0,
-           "output_bytes": 0,
+           "output_bytes": 0, "operations": {k: 0 for k in rates},
            "evaluated_divisions": 0, "cases": []}
-    t_bytes = t_ops = 0.0
     for case in cases:
         run, plain = case["run"], case["plain"]
         got = run()
@@ -163,16 +212,17 @@ def measure(kname: str, cases: list, launches: int, bw: float) -> dict:
         out_bytes = sum(t.numel() * t.element_size() for t in got)
         nbytes = out_bytes + sum(t.numel() * t.element_size()
                                  for t in case["inputs"])
+        ops = case["ops"](got)
         extra = case["extra"](got) if case.get("extra") else {}
         del got
-        c_bytes = nbytes / bw * 1e3
-        c_ops = evals_total * case["ops_per_eval"] / case["op_peak"] * 1e3
-        t_bytes, t_ops = t_bytes + c_bytes, t_ops + c_ops
+        terms = {"bytes": nbytes / bw * 1e3}
+        terms.update({k: n / rates[k] * 1e3 for k, n in ops.items()})
         one = {"shape": case["shape"], "ms": cuda_ms(run, reps=10, warmup=2),
                "plain_ms": cuda_ms(plain, reps=3),
                "library_ms": (None if case["library"] is None
                               else cuda_ms(case["library"], 10, 2)),
-               "bound_ms": max(c_bytes, c_ops), "bytes": nbytes,
+               "bound_ms": max(terms.values()), "bound_terms_ms": terms,
+               "bytes": nbytes, "operations": ops,
                "evaluated_divisions": evals_total}
         one["triples_per_s"] = evals_total / one["ms"] * 1e3
         one["output_GBps"] = out_bytes / one["ms"] * 1e-6
@@ -181,11 +231,17 @@ def measure(kname: str, cases: list, launches: int, bw: float) -> dict:
         for k in ("ms", "plain_ms", "bytes", "output_bytes",
                   "evaluated_divisions"):
             rec[k] += one[k]
+        for k, n in ops.items():
+            rec["operations"][k] += n
         if one["library_ms"] is not None:
             rec["library_ms"] = (rec["library_ms"] or 0.0) + one["library_ms"]
         rec["cases"].append(one)
-    rec["bound_ms"] = max(t_bytes, t_ops)
-    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    terms = {"bytes": rec["bytes"] / bw * 1e3}
+    terms.update({k: n / rates[k] * 1e3 for k, n in rec["operations"].items()})
+    rec["bound_ms"] = max(terms.values())
+    rec["bound_terms_ms"] = terms
+    rec["bound_by"] = ("bytes" if terms["bytes"] >= rec["bound_ms"]
+                       else "operations")
     rec["triples_per_s"] = rec["evaluated_divisions"] / rec["ms"] * 1e3
     rec["output_GBps"] = rec["output_bytes"] / rec["ms"] * 1e-6
     if len(cases) == 1:
@@ -200,24 +256,55 @@ def kernel_counters() -> dict:
     from repro_torch import kernels as tk
     return {f.__name__: f for f in (
         tk.tcam_match_cuda, tk.tcam_match_bits_cuda, tk.tcam_match_packed_cuda,
-        tk.tcam_match_banked_cuda, tk.tcam_match_banked_bits_cuda,
-        tk.pack_words_cuda, tk.pack_planes_cuda)}
+        tk.tcam_match_packed_bits_cuda, tk.tcam_match_banked_cuda,
+        tk.tcam_match_banked_bits_cuda, tk.pack_words_cuda,
+        tk.pack_planes_cuda)}
+
+
+def path_counters() -> dict:
+    """The bitplane (``path_*``) and packed (``packed_path_*``) kernels'
+    launches by path."""
+    from repro_torch.kernels import MATCH_PATH_LAUNCHES, PACKED_PATH_LAUNCHES
+    return {"path": MATCH_PATH_LAUNCHES, "packed_path": PACKED_PATH_LAUNCHES}
 
 
 def zero_counts() -> None:
-    from repro_torch.kernels import MATCH_PATH_LAUNCHES
     for f in kernel_counters().values():
         f.launches = 0
-    for path in MATCH_PATH_LAUNCHES:
-        MATCH_PATH_LAUNCHES[path] = 0
+    for paths in path_counters().values():
+        for path in paths:
+            paths[path] = 0
 
 
 def read_counts() -> dict:
-    """Launches per wrapper, and the bitplane kernel's by path."""
-    from repro_torch.kernels import MATCH_PATH_LAUNCHES
+    """Launches per wrapper, and each match kernel's by path."""
     counts = {n: f.launches for n, f in kernel_counters().items()}
-    counts.update({f"path_{k}": v for k, v in MATCH_PATH_LAUNCHES.items()})
+    for prefix, paths in path_counters().items():
+        counts.update({f"{prefix}_{k}": v for k, v in paths.items()})
     return counts
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def record_ptxas(reports: dict) -> None:
+    """Keep ``build_all()``'s ``ptxas -v`` lines (registers, shared memory,
+    spills) in ``PTXAS`` by kernel, and log them."""
+    for src, out in reports.items():
+        entry = None
+        for line in out.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif entry and ("registers" in line or "spill" in line):
+                PTXAS[entry] = (PTXAS.get(entry, "") + " "
+                                + line.split(":", 1)[-1].strip()).strip()
+                log(f"  ptxas {src}: {line.strip()}")
 
 
 def ptxas_of(fragment: str) -> str:
@@ -227,24 +314,25 @@ def ptxas_of(fragment: str) -> str:
     return lines[0] if lines else "not reported: library built before this run"
 
 
-def bitplane_extra(got, x, is0, is1, planes, kmax_t, s: int,
-                   uint8_entry) -> dict:
-    """Figures the bitplane rows add (phases 4 and 6), on G-leading
-    tensors: the uint8 entry equals the prepacked one; the pack kernel on
-    the search words equals ``pack_bits`` (``torch.equal``), and its time;
-    the one-off plane pack of ``prepare_*``, equal to the operands it made,
-    and its time; the match kernel alone on packed words, and on division 0
-    only (the same launch with D = 1: every pair evaluated once, all
-    outputs written); the time the card
-    takes to write two arrays of the outputs' size (``fill_``, the store
-    floor, which overwrites ``got``); ``ptxas``."""
+def match_extra(got, x, p0, p1, words, kmax_t, s: int, other_entry, launch,
+                kernel: str) -> dict:
+    """Figures the match rows add (phases 4 and 6), on G-leading tensors:
+    the kernel's other entry (``other_entry()``: uint8 planes, or row-major
+    packed words) equals the prepacked one; the pack kernel on the search
+    words equals ``pack_bits`` (``torch.equal``), and its time; the one-off
+    pack of the operands from planes ``p0``, ``p1`` at ``prepare_*``,
+    equal to the operands it made (``words``), and its time; the match
+    kernel alone on packed words (``launch(xw, words, kmax_t, b, s)``),
+    and on division 0 only (the same launch with D = 1: every pair
+    evaluated once, all outputs written); the time the card takes to write
+    two arrays of the outputs' size (``fill_``, the store floor, which
+    overwrites ``got``); ``ptxas`` for ``kernel`` and the pack kernels."""
     import torch
 
     from repro_torch.kernels import (pack_bits, pack_planes_cuda,
                                      pack_words_cuda)
-    from repro_torch.kernels._cuda import launch_match_bits
-    for g, w in zip(uint8_entry(), got):
-        check(torch.equal(g, w), "uint8 entry == prepacked entry")
+    for g, w in zip(other_entry(), got):
+        check(torch.equal(g, w), "other entry == prepacked entry")
     g_, b, w = x.shape
     sw = -(-s // 32)
     xw = pack_words_cuda(x, s=s)
@@ -252,22 +340,102 @@ def bitplane_extra(got, x, is0, is1, planes, kmax_t, s: int,
     pack_equal = torch.equal(xw[:, :, :b], want)
     check(pack_equal, "pack kernel == pack_bits")
     del want
-    check(torch.equal(pack_planes_cuda(is0, is1, s=s), planes),
-          "plane pack == prepared operands")
-    first = [t[:, :1].contiguous() for t in (xw, planes, kmax_t)]
+    check(torch.equal(pack_planes_cuda(p0, p1, s=s), words),
+          "operand pack == prepared operands")
+    first = [t[:, :1].contiguous() for t in (xw, words, kmax_t)]
     return {
         "pack_ms": cuda_ms(lambda: pack_words_cuda(x, s=s), 10, 2),
         "pack_equal": pack_equal,
-        "plane_pack_ms": cuda_ms(lambda: pack_planes_cuda(is0, is1, s=s), 5, 1),
+        "plane_pack_ms": cuda_ms(lambda: pack_planes_cuda(p0, p1, s=s), 5, 1),
         "match_only_ms": cuda_ms(
-            lambda: launch_match_bits(xw, planes, kmax_t, b, s), 10, 2),
-        "division0_ms": cuda_ms(
-            lambda: launch_match_bits(*first, b, s), 10, 2),
+            lambda: launch(xw, words, kmax_t, b, s), 10, 2),
+        "division0_ms": cuda_ms(lambda: launch(*first, b, s), 10, 2),
         "store_floor_ms": cuda_ms(lambda: [t.fill_(1) for t in got], 10, 2),
-        "ptxas": {"match_bits_kernel": ptxas_of(f"match_bits_kernelILi{sw}E"),
+        "ptxas": {kernel: ptxas_of(f"{kernel}ILi{sw}E"),
+                  **({"word_classes": ptxas_of(f"word_classesILi{sw}E")}
+                     if kernel == "packed_bits_kernel" else {}),
                   "pack_kernel_wide": ptxas_of("pack_kernel_wide"),
                   "pack_kernel": ptxas_of("pack_kernelEPKh")},
     }
+
+
+def launch_packed(xw, vc, kmax_t, b: int, s: int):
+    """The packed kernel's launch on G-leading (G = 1) packed operands."""
+    from repro_torch.kernels._cuda import launch_packed_bits
+    return [t[None] for t in launch_packed_bits(xw[0], vc[0], kmax_t[0], b,
+                                                s)]
+
+
+def packed_row(lay, x, km_np, km, shape: dict, launches: int, bw: float,
+               rates: dict) -> dict:
+    """Phase 4's packed row: the prepacked entry as the main path calls it
+    (word pack + match) on ``prepare_match(engine="packed")`` operands with
+    the SA kmax, held against the plain version (pack_words +
+    ``tcam_match_packed_bits_ref``) and timed.  Its added figures: those of
+    ``match_extra`` (the row-major entry against the prepacked one) and the
+    same call at kmax = 0 (the main path's own operands), held against the
+    plain version and timed (whole call and match alone): an extra figure
+    of the row, not a second case."""
+    import torch
+
+    from repro_torch.core.lut import bitplanes
+    from repro_torch.kernels import (pack_bits, pack_words, pack_words_cuda,
+                                     prepare_match,
+                                     tcam_match_packed_bits_cuda,
+                                     tcam_match_packed_bits_ref,
+                                     tcam_match_packed_cuda)
+    dev, s, b = x.device, lay.s, x.shape[0]
+    is0, is1 = (torch.from_numpy(p).to(dev) for p in bitplanes(lay.cells))
+    care = is0 | is1
+    sa_ops = prepare_match(lay.cells, s, km_np, engine="packed", device=dev)
+    ideal_ops = prepare_match(lay.cells, s, None, engine="packed", device=dev)
+
+    def plain(o):
+        return tcam_match_packed_bits_ref(pack_words(x[None], s)[0], o.a,
+                                          o.kmax, b)
+
+    def extra(got):
+        xq, val, cv = (pack_bits(t) for t in (x, is1, care))
+        out = match_extra(
+            [t[None] for t in got], x[None], is1[None], care[None],
+            sa_ops.a[None], sa_ops.kmax[None], s,
+            lambda: [t[None] for t in tcam_match_packed_cuda(
+                xq, val, cv, km, s=s)],
+            launch_packed, "packed_bits_kernel")
+        del xq, val, cv
+
+        def ideal_run():
+            return tcam_match_packed_bits_cuda(x, ideal_ops.a, ideal_ops.kmax,
+                                               s=s)
+        k0 = ideal_run()
+        torch.cuda.synchronize()
+        for g, w in zip(k0, plain(ideal_ops)):
+            check(torch.equal(g, w), "packed kernel at kmax = 0 == plain")
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (x, ideal_ops.a, ideal_ops.kmax, *k0))
+        ops = packed_ops(k0[1], ideal_ops.kmax, s)
+        terms = {"bytes": nbytes / bw * 1e3}
+        terms.update({k: n / rates[k] * 1e3 for k, n in ops.items()})
+        evals = int(k0[1].sum(dtype=torch.int64))
+        del k0
+        ms = cuda_ms(ideal_run, 10, 2)
+        out["kmax0"] = {"ms": ms, "plain_equal": True, "bytes": nbytes,
+                        "operations": ops, "bound_ms": max(terms.values()),
+                        "bound_terms_ms": terms, "evaluated_divisions": evals,
+                        "triples_per_s": evals / ms * 1e3}
+        xw = pack_words_cuda(x[None], s=s)
+        out["kmax0"]["match_only_ms"] = cuda_ms(lambda: launch_packed(
+            xw, ideal_ops.a[None], ideal_ops.kmax[None], b, s), 10, 2)
+        return out
+
+    return measure("tcam_packed", [{
+        "run": lambda: tcam_match_packed_bits_cuda(x, sa_ops.a, sa_ops.kmax,
+                                                   s=s),
+        "plain": lambda: plain(sa_ops), "library": None, "extra": extra,
+        "inputs": (x, sa_ops.a, sa_ops.kmax),
+        "ops": lambda got: packed_ops(got[1], sa_ops.kmax, s),
+        "shape": shape,
+    }], launches, bw, rates)
 
 
 def hard_vote(trees, X, n_classes: int):
@@ -283,7 +451,7 @@ def hard_vote(trees, X, n_classes: int):
     return np.argmax(counts, axis=1)
 
 
-def forest_phase(dev, bw: float) -> dict:
+def forest_phase(dev, bw: float, rates: dict) -> dict:
     """Phase 6: the forest path.  Returns the banked kernel's record."""
     import numpy as np
     import torch
@@ -298,6 +466,7 @@ def forest_phase(dev, bw: float) -> dict:
                                      tcam_match_banked_bits_cuda,
                                      tcam_match_banked_cuda,
                                      tcam_match_banked_plain)
+    from repro_torch.kernels._cuda import launch_match_bits
     from repro_torch.serve import ServeConfig, TCAMServer
 
     Xtr, ytr, Xte, _ = load_split(FOREST_DATASET)
@@ -329,7 +498,8 @@ def forest_phase(dev, bw: float) -> dict:
     log(f"forest main path launches: {counts}")
     launches = counts["tcam_match_banked_bits_cuda"]
     check(counts["tcam_match_cuda"] == counts["tcam_match_bits_cuda"]
-          == counts["tcam_match_packed_cuda"] == 0,
+          == counts["tcam_match_packed_cuda"]
+          == counts["tcam_match_packed_bits_cuda"] == 0,
           "the forest path launched no single-bank kernel")
     check(launches == plan.n_groups == counts["pack_words_cuda"],
           f"banked kernel and word pack launched once per group ({launches} "
@@ -397,16 +567,17 @@ def forest_phase(dev, bw: float) -> dict:
             "plain": lambda x=x, a=is0, b=is1, k=k, s=grp.s:
                 tcam_match_banked_plain(x, a, b, s, k),
             "library": lambda a=xb16, b=p0b16: torch.bmm(a, b.transpose(1, 2)),
-            "extra": lambda got, x=x, a=is0, b=is1, k=k, o=ops: bitplane_extra(
+            "extra": lambda got, x=x, a=is0, b=is1, k=k, o=ops: match_extra(
                 got, x, a, b, o.a, o.kmax, o.s,
-                lambda: tcam_match_banked_cuda(x, a, b, k, s=o.s)),
+                lambda: tcam_match_banked_cuda(x, a, b, k, s=o.s),
+                launch_match_bits, "match_bits_kernel"),
             "inputs": (x, ops.a, ops.kmax),
-            "ops_per_eval": 3 * -(-grp.s // 32), "op_peak": PEAK_CUDA_CORE,
+            "ops": lambda got, s=grp.s: bitplane_ops(got[1], s),
             "shape": {"G": grp.n_banks, "B": x.shape[1], "R": grp.r_pad,
                       "W": grp.width, "S": grp.s, "D": grp.d_pad,
                       "stuck_faults": gi == 0},
         })
-    rec = measure("tcam_match_banked", cases, launches, bw)
+    rec = measure("tcam_match_banked", cases, launches, bw, rates)
     rec["library_call"] = ("bf16 torch.bmm (G,B,W)x(G,W,R) per group: "
                            "products only")
     del cases
@@ -467,21 +638,18 @@ def main() -> int:
                                   train_tree)
     from repro_torch.core.lut import CELL_MM, bitplanes
     from repro_torch.dt import DATASETS, load_split
-    from repro_torch.kernels import (build_all, pack_bits, prepare_match,
-                                     sa_kmax, select_engine, tcam_infer,
+    from repro_torch.kernels import (build_all, prepare_match, sa_kmax,
+                                     select_engine, tcam_infer,
                                      tcam_match_bits_cuda, tcam_match_cuda,
-                                     tcam_match_packed_cuda,
-                                     tcam_match_packed_plain, tcam_match_plain)
+                                     tcam_match_packed_bits_cuda,
+                                     tcam_match_packed_cuda, tcam_match_plain)
+    from repro_torch.kernels._cuda import launch_match_bits
     from repro_torch.serve import ServeConfig, TCAMServer
 
     dev = torch.device("cuda")
     # -- 1. the card -------------------------------------------------------
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(f"device: {name} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}); nvidia-smi: {smi}")
 
@@ -489,15 +657,7 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = build_all()
     log(f"setup: kernel build {time.perf_counter() - t0:.2f} s")
-    for src, out in reports.items():
-        entry = None
-        for line in out.splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-            elif entry and ("registers" in line or "spill" in line):
-                PTXAS[entry] = (PTXAS.get(entry, "") + " "
-                                + line.split(":", 1)[-1].strip()).strip()
-                log(f"  ptxas {src}: {line.strip()}")
+    record_ptxas(reports)
 
     # -- 3. main path at credit scale ------------------------------------------
     spec = DATASETS["credit"]
@@ -563,17 +723,24 @@ def main() -> int:
           "covid predictions equal the tree's own")
     counts = read_counts()
     launches = {"tcam_match": counts["tcam_match_bits_cuda"],
-                "tcam_packed": counts["tcam_match_packed_cuda"]}
+                "tcam_packed": counts["tcam_match_packed_bits_cuda"]}
     log(f"main path launches: {counts}")
     check(all(n > 0 for n in launches.values()),
           "both kernels launched on the main path")
     check(counts["tcam_match_cuda"] == counts["tcam_match_banked_cuda"]
           == counts["tcam_match_banked_bits_cuda"] == 0,
           "the main path runs the bitplane kernel through its prepacked entry")
+    check(counts["tcam_match_packed_cuda"] == 0,
+          "auto runs the packed kernel through its prepacked entry only")
     check(counts["path_tiled"] == launches["tcam_match"]
-          == counts["pack_words_cuda"] and counts["path_any"] == 0,
-          "every bitplane launch took the tiled path, each after one pack")
-    check(counts["pack_planes_cuda"] > 0, "planes packed at prepare")
+          and counts["path_any"] == 0,
+          "every bitplane launch took the tiled path")
+    check(counts["packed_path_tiled"] == launches["tcam_packed"]
+          and counts["packed_path_any"] == 0,
+          "every packed launch took the tiled path")
+    check(counts["pack_words_cuda"] == sum(launches.values()),
+          "one word pack per match launch")
+    check(counts["pack_planes_cuda"] > 0, "operands packed at prepare")
 
     # -- 4. kernels at the credit shapes --------------------------------------
     x = torch.from_numpy(lay.pad_inputs(xbits)).to(dev)
@@ -587,18 +754,9 @@ def main() -> int:
     shape = {"B": x.shape[0], "R": km.shape[0], "W": x.shape[1], "S": lay.s,
              "D": km.shape[1]}
 
-    is0, is1 = bitplanes(lay.cells)
-    xq = pack_bits(x)
-    val = pack_bits(torch.from_numpy(is1).to(dev))
-    care = pack_bits(torch.from_numpy(is0 | is1).to(dev))
-    sw = lay.s // 32
-    packed = measure("tcam_packed", [{
-        "run": lambda: tcam_match_packed_cuda(xq, val, care, km, s=lay.s),
-        "plain": lambda: tcam_match_packed_plain(xq, val, care, lay.s, km),
-        "library": None, "inputs": (xq, val, care, km),
-        "ops_per_eval": 3 * sw, "op_peak": PEAK_CUDA_CORE, "shape": shape,
-    }], launches["tcam_packed"], bw)
-    del val, care
+    rates = pipe_rates()
+    packed = packed_row(lay, x, km_np, km, shape, launches["tcam_packed"], bw,
+                        rates)
 
     f0, f1 = (torch.from_numpy(p).to(dev) for p in bitplanes(faulted))
     ops = prepare_match(faulted, lay.s, km_np, engine="mxu", device=dev)
@@ -607,14 +765,15 @@ def main() -> int:
         "run": lambda: tcam_match_bits_cuda(x, ops.a, ops.kmax, s=lay.s),
         "plain": lambda: tcam_match_plain(x, f0, f1, lay.s, km),
         "library": lambda: torch.matmul(xb16, f0b16.T),
-        "extra": lambda got: bitplane_extra(
+        "extra": lambda got: match_extra(
             [t[None] for t in got], x[None], f0[None], f1[None], ops.a[None],
             ops.kmax[None], lay.s,
             lambda: [t[None] for t in tcam_match_cuda(x, f0, f1, km,
-                                                      s=lay.s)]),
-        "inputs": (x, ops.a, ops.kmax), "ops_per_eval": 3 * sw,
-        "op_peak": PEAK_CUDA_CORE, "shape": shape,
-    }], launches["tcam_match"], bw)
+                                                      s=lay.s)],
+            launch_match_bits, "match_bits_kernel"),
+        "inputs": (x, ops.a, ops.kmax),
+        "ops": lambda got: bitplane_ops(got[1], lay.s), "shape": shape,
+    }], launches["tcam_match"], bw, rates)
     bitplane["library_call"] = "bf16 torch.matmul (B,W)x(W,R): products only"
     del xb16, f0b16, f0, f1, ops
 
@@ -639,7 +798,9 @@ def main() -> int:
                    ("energy_j", want.energy_per_dec)):
         check(np.array_equal([getattr(r, f) for r in res], arr[:n]),
               f"served {f} equals tcam_infer's")
-    check(tcam_match_packed_cuda.launches > 0, "serving ran the packed kernel")
+    check(tcam_match_packed_bits_cuda.launches > 0
+          and tcam_match_packed_cuda.launches == 0,
+          "serving ran the packed kernel through its prepacked entry")
     cl = stats["compute_latency"]
     log(json.dumps({
         "serve": {"engine": stats["engine"], "requests": n,
@@ -651,12 +812,12 @@ def main() -> int:
                   "compute_p99_ms": cl["p99_ms"],
                   "total_p50_ms": stats["total_latency"]["p50_ms"],
                   "total_p99_ms": stats["total_latency"]["p99_ms"],
-                  "packed_launches": tcam_match_packed_cuda.launches}}))
+                  "packed_launches": tcam_match_packed_bits_cuda.launches}}))
 
     del x, km
 
     # -- 6. forest ----------------------------------------------------------------
-    banked = forest_phase(dev, bw)
+    banked = forest_phase(dev, bw, rates)
 
     # -- 7. result ---------------------------------------------------------------
     log(smi)

@@ -79,10 +79,15 @@
 //    and rows are 16-byte aligned by pack_kernel_wide (a 16-byte load per
 //    thread, two threads per word), else by pack_kernel (one __ballot_sync
 //    per 32 cells).  The planes are packed the same way, once per layout.
+//    The packed kernel (tcam_packed.cu) uses the same word pack.
+//  * The cp.async staging and row loads are in tcam_tile.cuh, shared with
+//    tcam_packed.cu.
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+
+#include "tcam_tile.cuh"
 
 namespace {
 
@@ -93,75 +98,6 @@ constexpr int kMinBlocks = 8;         // blocks an SM: at most 64 registers
 constexpr int kUnroll0 = 8;           // division-0 words per unrolled step
 constexpr int kMaxTiledSW = 4;        // S <= 128 takes the tiled kernel
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// n consecutive 32-bit words from 8-byte (n odd) or 16-byte (n even)
-// aligned memory.
-template <int N>
-__device__ __forceinline__ void load_words(uint32_t (&w)[N],
-                                           const uint32_t* p) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i) {
-      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
-      w[4 * i] = v.x, w[4 * i + 1] = v.y, w[4 * i + 2] = v.z,
-      w[4 * i + 3] = v.w;
-    }
-  } else if constexpr (N % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) {
-      const uint2 v = reinterpret_cast<const uint2*>(p)[i];
-      w[2 * i] = v.x, w[2 * i + 1] = v.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) w[i] = p[i];
-  }
-}
-
-template <int SW>
-__device__ __forceinline__ void load_row(uint32_t (&w)[2 * SW],
-                                         const uint32_t* p) {
-  if constexpr (SW % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < SW / 2; ++i) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
-      w[4 * i] = v.x, w[4 * i + 1] = v.y, w[4 * i + 2] = v.z,
-      w[4 * i + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < SW; ++i) {
-      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p) + i);
-      w[2 * i] = v.x, w[2 * i + 1] = v.y;
-    }
-  }
-}
-
-// `chunks` 16-byte copies of one division's words of the tile into shared
-// memory, as one commit group (empty past the last division, so that
-// wait_group counts stay in step).
-__device__ __forceinline__ void stage(uint32_t* dst, const uint32_t* src,
-                                      int chunks) {
-  for (int c = threadIdx.x; c < chunks; c += kRows)
-    cp_async16(dst + 4 * c, src + 4 * c);
-  cp_async_commit();
-}
-
 // Mismatches of one search word's division against one row's planes.
 template <int SW>
 __device__ __forceinline__ int mismatches(const uint32_t (&x)[SW],
@@ -170,12 +106,6 @@ __device__ __forceinline__ int mismatches(const uint32_t (&x)[SW],
 #pragma unroll
   for (int k = 0; k < SW; ++k) m += __popc((x[k] & p[k]) | (~x[k] & p[SW + k]));
   return m;
-}
-
-// Bits of mask word c that index words < nb of the tile.
-__device__ __forceinline__ uint32_t tile_bits(int c, int nb) {
-  const int n = nb - 32 * c;
-  return n >= 32 ? 0xffffffffu : (n <= 0 ? 0u : (1u << n) - 1u);
 }
 
 template <int SW>
@@ -202,8 +132,8 @@ match_bits_kernel(const uint32_t* __restrict__ xw,       // (G, D, Bp, SW)
   const uint32_t* pg = planes + g * D * p_div + static_cast<size_t>(r) * 2 * SW;
   const int32_t* kg = kt + g * D * R + r;
 
-  stage(xs[0], xg, chunks);
-  stage(xs[1], xg + x_div, D > 1 ? chunks : 0);
+  stage<kRows>(xs[0], xg, chunks);
+  stage<kRows>(xs[1], xg + x_div, D > 1 ? chunks : 0);
   uint32_t cur[2 * SW], nxt[2 * SW];
 #pragma unroll
   for (int w = 0; w < 2 * SW; ++w) cur[w] = nxt[w] = 0;
@@ -244,8 +174,8 @@ match_bits_kernel(const uint32_t* __restrict__ xw,       // (G, D, Bp, SW)
     for (int c = 0; c < kMasks; ++c) any |= live[c] != 0;
     // Every thread is done with division d-1, so xs[(d+1) & 1] is free.
     if (!__syncthreads_or(any)) break;
-    stage(xs[(d + 1) & 1], xg + static_cast<size_t>(d + 1) * x_div,
-          d + 1 < D ? chunks : 0);
+    stage<kRows>(xs[(d + 1) & 1], xg + static_cast<size_t>(d + 1) * x_div,
+                 d + 1 < D ? chunks : 0);
 #pragma unroll
     for (int w = 0; w < 2 * SW; ++w) cur[w] = nxt[w];
     kmax = knxt;
@@ -412,10 +342,6 @@ void launch_tiled(dim3 grid, cudaStream_t stream, const uint32_t* xw,
                   int32_t* ev, int B, int Bp, int R, int D) {
   match_bits_kernel<SW><<<grid, kRows, 0, stream>>>(xw, planes, kt, sv, ev, B,
                                                     Bp, R, D);
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 int launch_pack(const void* a, const void* b, void* out, int G, int rows,

@@ -1,217 +1,436 @@
-// Bit-packed ternary CAM match with selective precharge, for sm_90a.
+// Bit-packed ternary CAM match with selective precharge, for sm_90a, on
+// division-major operands packed on the card.
 //
-// Replaces: src/repro/kernels/tcam_packed.py, `_kernel` launched by
-// `tcam_match_packed_pallas` (the Pallas TPU kernel behind engine "packed").
+// Replaces: src/repro/kernels/tcam_packed.py:30, `_kernel` launched by
+// `tcam_match_packed_pallas` (the Pallas TPU kernel behind engine
+// "packed", which select_engine("auto") picks on every ideal layout with
+// S % 32 == 0).
 //
 // Computes, for every search word b and TCAM row r, walking the column
-// divisions d = 0..D-1 of width S = 32*SW bits in order:
-//     mism  = sum over the division's words of popc((x ^ val) & care)
+// divisions d = 0..D-1 of width S = 32·SW bits in order:
+//     mism  = sum over the division's SW words of popc((x ^ val) & care)
 //     match = mism <= kmax[r, d]
-// A row is evaluated in division d iff it matched every earlier division.
-// Outputs survive[b, r] (matched all D divisions) and evals[b, r] (divisions
-// evaluated), both int32, row-major (B, R).
+// with val = pack(is1) and care = pack(is0 | is1), the TPU kernel's
+// formulation (the engine needs S % 32 == 0 and no CELL_MM cell).  A row
+// is evaluated in division d iff it matched every earlier division.
+// Outputs survive[b, r] (matched all D divisions) and evals[b, r]
+// (divisions evaluated), int32, row-major (B, R).
 //
-// What bounds it on this card: bytes.  The inputs are small (the packed rows
-// of a Give Me Some Credit layout are 5 MB) but the two (B, R) int32 outputs
-// are 8 bytes per (b, r) pair, 825 MB at B = 12027, R = 8576; the popcount
-// work per pair is a few integer operations, because almost every row of a
-// decision-tree TCAM fails its first or second division.
+// Operands:
+//   vc     (D, R, 2·SW) uint32: for each (division, row) val's SW words
+//          then care's, packed once per layout by dt2cam_pack_planes
+//          (tcam_match.cu) from is1 and is0 | is1;
+//   kmax_t (D, R) int32, kmax transposed;
+//   xw     (D, Bp, SW) uint32, the search words, packed per call on the
+//          card by dt2cam_pack_words (tcam_match.cu); Bp = B rounded up to
+//          4, so that each division's slab of words starts 16-byte aligned;
+//   same   (D, ceil(B/64), 64) uint64 scratch, made per call by
+//          word_classes below: for each word of a tile, the tile's words
+//          equal to it in that division.
 //
-// What the design does about it:
-//  * The TPU kernel keeps the precharge carry in a revisited output block
-//    across a sequential grid axis.  Blocks on this card run in no order, so
-//    the division loop is inside the thread: one thread owns one row r and
-//    walks the divisions for each search word of its block's batch tile.
-//  * The thread stops at its first mismatching division.  That is exact:
-//    after it the row is inactive, evals stops growing and survive stays 0.
-//    A TPU cannot branch per element; here it removes nearly all the work,
-//    leaving the output stores, which are coalesced (consecutive threads own
-//    consecutive rows r of one output row b).
-//  * Division 0, which every pair evaluates, keeps its val/care words in
-//    registers for the whole batch tile; later divisions load theirs with
-//    16-byte loads when the division is 4 words (S = 128).
-//  * The batch tile's search words sit in shared memory; every thread of a
-//    warp reads the same word, a broadcast.
-//  * kmax = -1 never matches (mism >= 0); a fully masked division has
-//    kmax = S and always matches.  Ragged B and R edges are masked here, so
-//    the caller pads nothing.
+// What bounds it on this card: the bytes of the two int32 outputs (8 per
+// (b, r) pair, 825 MB at the Give Me Some Credit tree: 0.25 ms at
+// 3.35 TB/s); the logic work is one LOP3 per word and evaluated (word,
+// row, division) triple, 0.15 ms for the 625 M triples of the credit tree
+// on ideal hardware.  What the kernel it replaces lost its time to was
+// neither: it refetched each row's division words for every search word,
+// with warp loads 32 sectors wide, and popcounted every word.  On the
+// credit tree a (word, row) pair lives 6.06 divisions on ideal hardware
+// and 4.53 under SA offsets (sigma 0.08), so the later divisions carry
+// most of the work and cannot be treated as rare.  In this kernel the time
+// beyond the output stores goes to the serial walk over each division's
+// words and to recording where pairs die.
+//
+// What the design does about it (figures of the credit tree counted on the
+// host by tools/packed_walk_stats.py; times on the card by chip_smoke.py
+// and tools/packed_bench.py, in PERF.md):
+//  * Divisions in the outer loop over a tile of 128 rows (one thread
+//    each) x 64 search words, as tcam_match.cu.  The precharge carry is a
+//    64-bit live mask over the tile's words.  A row's 2·SW words (one
+//    32-byte sector at S = 128) and kmax are loaded once per division and
+//    tile, one division ahead, so a warp's 32 rows read one contiguous
+//    1 KB.  Each division's search words of the tile are staged in shared
+//    memory by cp.async, double buffered.  The block leaves the loop when
+//    __syncthreads_or finds no live pair in it.  (Warps walking on alone,
+//    with no barrier and the words read through L1, were no faster.)
+//  * Equal words are tested once.  A tile's 64 words take 15.4 distinct
+//    values per division on average (a division covers a few encoded
+//    features, and queries share their intervals), so word_classes, a
+//    small kernel launched first, records for each (division, tile, word)
+//    the mask of the tile's words equal to it.  The walk tests one word of
+//    a class and applies the result to the whole class.  That cut the
+//    later divisions' walk 4x (1.58 M against 6.08 M warp steps over 48
+//    tiles, ideal) and the main-path call from 1.8 to 1.3 ms.
+//  * The test of a row in a division is chosen from its kmax and its care
+//    words, once per division and tile:
+//      kmax < 0         never matches: every live pair dies, no word loads;
+//      kmax >= S, or kmax >= 0 on a division without a cared cell
+//                       always matches: no word loads;
+//      kmax = 0         OR over the words of (x ^ val) & care == 0: no
+//                       popcount;
+//      otherwise        sum of __popc(...) <= kmax.
+//    The last two are chosen per warp and division: the popcount sum is
+//    exact for every row, so a warp takes it when one of its testing rows
+//    with a live pair has kmax > 0, else the OR test.  No result changes.
+//    On the credit tree (SA kmax as chip_smoke.py phase 4 draws it):
+//    27.4 % of (row, division) cells are all don't-care; kmax is -1 in
+//    7.4 %, 0 in 85.2 % and > 0 in 7.4 %; 25.4 % of cells always match and
+//    5.4 % need the popcount sum, which still puts 73.7 % of (warp,
+//    division) pairs on it before liveness is counted.  On ideal hardware
+//    (the main path) kmax is 0 everywhere and no popcount is issued.
+//  * The walk over a later division: each thread tests the classes of its
+//    own live words, the slowest lane setting the warp's count (1.58 /
+//    1.43 M warp steps, ideal / SA).  Two other walks were timed on the
+//    card and dropped: in step over the classes of the union of the warp's
+//    live words (1.69 / 1.51 M steps, broadcast loads, no divergence) was
+//    a few per cent slower, and in step over every class of the tile
+//    (4.82 / 3.76 M) about 1.5x slower.  Division 0 tests every class of
+//    the tile in step.
+//  * Masks are walked 32 bits at a time: 64-bit find-first-set costs
+//    several times the 32-bit one, and walking the halves took the
+//    main-path call from 1.3 to 0.9 ms, most of it in the loop that
+//    records deaths.
+//  * Evals: a pair that dies after division 0 records d + 1 in shared
+//    memory (uint16) where it dies; one alive at the end walked every
+//    division (the block leaves early only when no pair is alive); one
+//    dead in division 0 was evaluated once.
+//  * Outputs: for each word of the tile, the 128 threads write 128
+//    consecutive int32 of survive and of evals: coalesced and streaming
+//    (__stcs), so they do not evict the operands from L2.
+//  * Offsets are size_t.  Ragged B and R edges are masked here, so the
+//    caller pads nothing beyond Bp.
+//  * S > 128 (SW > 4) takes packed_bits_any, a thread per row walking each
+//    word of its tile through the divisions from global memory, on the
+//    same operands.  Every shape of the repo's configurations (S in
+//    32..128 on this engine) takes the tiled kernel.
+//  * The cp.async staging and row loads are shared with tcam_match.cu
+//    (tcam_tile.cuh).
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
+#include "tcam_tile.cuh"
+
 namespace {
 
-constexpr int kRowsPerBlock = 128;     // threads per block, one TCAM row each
-constexpr int kMaxBatchPerBlock = 32;  // search words tiled in shared memory
-constexpr size_t kSmemBudget = 48 * 1024;
+using u64 = unsigned long long;
 
-template <int SW>
-__device__ __forceinline__ void load_words(uint32_t (&out)[SW],
-                                           const uint32_t* __restrict__ p) {
-  if constexpr (SW % 4 == 0) {
+constexpr int kRows = 128;            // threads per block, one TCAM row each
+constexpr int kWords = 64;            // search words per block (one u64 mask)
+constexpr int kMinBlocks = 8;         // blocks an SM: at most 64 registers
+constexpr int kMaxTiledSW = 4;        // S <= 128 takes the tiled kernel
+constexpr unsigned kAll = 0xffffffffu;
+
+// Whether one search word's division matches one row: the popcount sum
+// against kmax (kPopc), or no mismatching cell at all (kmax = 0).
+template <int SW, bool kPopc>
+__device__ __forceinline__ bool matches(const uint32_t (&x)[SW],
+                                        const uint32_t (&vc)[2 * SW],
+                                        int kmax) {
+  if constexpr (kPopc) {
+    int m = 0;
 #pragma unroll
-    for (int w = 0; w < SW; w += 4) {
-      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p + w));
-      out[w] = q.x;
-      out[w + 1] = q.y;
-      out[w + 2] = q.z;
-      out[w + 3] = q.w;
-    }
-  } else if constexpr (SW % 2 == 0) {
-#pragma unroll
-    for (int w = 0; w < SW; w += 2) {
-      const uint2 q = __ldg(reinterpret_cast<const uint2*>(p + w));
-      out[w] = q.x;
-      out[w + 1] = q.y;
-    }
+    for (int k = 0; k < SW; ++k) m += __popc((x[k] ^ vc[k]) & vc[SW + k]);
+    return m <= kmax;
   } else {
+    uint32_t o = 0;
 #pragma unroll
-    for (int w = 0; w < SW; ++w) out[w] = __ldg(p + w);
+    for (int k = 0; k < SW; ++k) o |= (x[k] ^ vc[k]) & vc[SW + k];
+    return o == 0;
   }
 }
 
+// Whether a row with this kmax matches every word in a division whatever
+// the words: kmax >= S, or kmax >= 0 on a division without a cared cell.
 template <int SW>
-__device__ __forceinline__ int mismatches(const uint32_t* __restrict__ x,
-                                          const uint32_t (&v)[SW],
-                                          const uint32_t (&c)[SW]) {
-  int m = 0;
+__device__ __forceinline__ bool always_matches(const uint32_t (&vc)[2 * SW],
+                                               int kmax) {
+  uint32_t c = 0;
 #pragma unroll
-  for (int w = 0; w < SW; ++w) m += __popc((x[w] ^ v[w]) & c[w]);
-  return m;
+  for (int k = 0; k < SW; ++k) c |= vc[SW + k];
+  return kmax >= 32 * SW || (kmax >= 0 && c == 0);
 }
 
-// Search words of rows [b0, b0 + nb) into shared memory.
-__device__ __forceinline__ void load_batch_tile(uint32_t* xs,
-                                                const uint32_t* __restrict__ x,
-                                                int b0, int nb, int W32) {
-  const uint32_t* xg = x + static_cast<size_t>(b0) * W32;
-  for (int i = threadIdx.x; i < nb * W32; i += blockDim.x) xs[i] = __ldg(xg + i);
+__device__ __forceinline__ u64 tile_mask(int nb) {
+  return nb >= kWords ? ~0ull : (1ull << nb) - 1;
+}
+
+// Equal search words: for each division and tile of kWords words,
+// same[w] = the words of the tile equal to word w in that division (w
+// itself included; 0 past the tile's last word).  One thread per word.
+template <int SW>
+__global__ void __launch_bounds__(kWords)
+word_classes(const uint32_t* __restrict__ xw, u64* __restrict__ same, int B,
+             int Bp) {
+  __shared__ uint32_t xs[kWords * SW];
+  const int w = threadIdx.x;
+  const int b0 = blockIdx.x * kWords;
+  const int nb = min(kWords, B - b0);
+  const uint32_t* xd =
+      xw + (static_cast<size_t>(blockIdx.y) * Bp + b0) * SW;
+  uint32_t mine[SW];
+#pragma unroll
+  for (int k = 0; k < SW; ++k) {
+    mine[k] = w < nb ? __ldg(xd + w * SW + k) : 0u;
+    xs[w * SW + k] = mine[k];
+  }
   __syncthreads();
+  u64 m = 0;
+  if (w < nb) {
+    for (int v = 0; v < nb; ++v) {
+      uint32_t diff = 0;
+#pragma unroll
+      for (int k = 0; k < SW; ++k) diff |= xs[v * SW + k] ^ mine[k];
+      m |= static_cast<u64>(diff == 0) << v;
+    }
+  }
+  same[(static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * kWords +
+       w] = m;
 }
 
-// S/32 = SW words per division, known at compile time.
+// Test the classes of equal words that cover `todo`, one word each; returns
+// the words of the classes that mismatch this row.  The walk runs over the
+// two 32-bit halves of the mask: 64-bit find-first-set costs several times
+// the 32-bit one on this card.
+template <int SW, bool kPopc>
+__device__ __forceinline__ u64 failing(u64 todo, const uint32_t* xd,
+                                       const u64* same,
+                                       const uint32_t (&vc)[2 * SW],
+                                       int kmax) {
+  u64 fail = 0;
+  uint32_t lo = static_cast<uint32_t>(todo);
+  uint32_t hi = static_cast<uint32_t>(todo >> 32);
+  while (lo | hi) {
+    const int w = lo ? __ffs(lo) - 1 : 31 + __ffs(hi);
+    const u64 cls = same[w];
+    lo &= ~static_cast<uint32_t>(cls);
+    hi &= ~static_cast<uint32_t>(cls >> 32);
+    uint32_t x[SW];
+    load_words<SW>(x, xd + w * SW);
+    if (!matches<SW, kPopc>(x, vc, kmax)) fail |= cls;
+  }
+  return fail;
+}
+
 template <int SW>
-__global__ void __launch_bounds__(kRowsPerBlock)
-tcam_packed_kernel(const uint32_t* __restrict__ x,
-                   const uint32_t* __restrict__ val,
-                   const uint32_t* __restrict__ care,
-                   const int32_t* __restrict__ kmax,
-                   int32_t* __restrict__ survive, int32_t* __restrict__ evals,
-                   int B, int R, int W32, int D, int batch_per_block) {
-  extern __shared__ uint32_t xs[];  // [batch_per_block][W32]
-  const int b0 = blockIdx.y * batch_per_block;
-  const int nb = min(batch_per_block, B - b0);
-  load_batch_tile(xs, x, b0, nb, W32);
+__device__ __forceinline__ u64 failing(bool popc, u64 todo, const uint32_t* xd,
+                                       const u64* same,
+                                       const uint32_t (&vc)[2 * SW],
+                                       int kmax) {
+  return popc ? failing<SW, true>(todo, xd, same, vc, kmax)
+              : failing<SW, false>(todo, xd, same, vc, kmax);
+}
 
-  const int r = blockIdx.x * kRowsPerBlock + threadIdx.x;
-  if (r >= R) return;
-  const uint32_t* vr = val + static_cast<size_t>(r) * W32;
-  const uint32_t* cr = care + static_cast<size_t>(r) * W32;
-  const int32_t* kr = kmax + static_cast<size_t>(r) * D;
+template <int SW>
+__global__ void __launch_bounds__(kRows, kMinBlocks)
+packed_bits_kernel(const uint32_t* __restrict__ xw,   // (D, Bp, SW)
+                   const uint32_t* __restrict__ vc,   // (D, R, 2SW)
+                   const int32_t* __restrict__ kt,    // (D, R)
+                   const u64* __restrict__ same,      // (D, tiles, kWords)
+                   int32_t* __restrict__ survive,     // (B, R)
+                   int32_t* __restrict__ evals,       // (B, R)
+                   int B, int Bp, int R, int D) {
+  __shared__ __align__(16) uint32_t xs[2][kWords * SW];
+  __shared__ __align__(16) u64 cs[2][kWords];
+  __shared__ uint16_t ev[kWords][kRows];
 
-  uint32_t v0[SW], c0[SW];
-  load_words<SW>(v0, vr);
-  load_words<SW>(c0, cr);
-  const int k0 = __ldg(kr);
+  const int t = threadIdx.x;
+  const int r = blockIdx.x * kRows + t;
+  const bool row_ok = r < R;
+  const int b0 = blockIdx.y * kWords;
+  const int nb = min(kWords, B - b0);
+  const u64 all = tile_mask(nb);
+  const int chunks = min(kWords, Bp - b0) * SW / 4;   // 16-byte copies
+  const size_t x_div = static_cast<size_t>(Bp) * SW;  // words per division
+  const size_t c_div = static_cast<size_t>(gridDim.y) * kWords;
+  const size_t p_div = static_cast<size_t>(R) * 2 * SW;
+  const uint32_t* xg = xw + static_cast<size_t>(b0) * SW;
+  const u64* cg = same + static_cast<size_t>(blockIdx.y) * kWords;
+  const uint32_t* pg = vc + static_cast<size_t>(r) * 2 * SW;
+  const int32_t* kg = kt + r;
 
-  for (int i = 0; i < nb; ++i) {
-    const uint32_t* xb = xs + i * W32;
-    int ev = 1;
-    bool alive = mismatches<SW>(xb, v0, c0) <= k0;
-    for (int d = 1; alive && d < D; ++d) {
-      uint32_t v[SW], c[SW];
-      load_words<SW>(v, vr + d * SW);
-      load_words<SW>(c, cr + d * SW);
-      ++ev;
-      alive = mismatches<SW>(xb + d * SW, v, c) <= __ldg(kr + d);
+  // One division's words and classes of the tile, as one commit group.
+  auto stage_division = [&](int buf, int d) {
+    if (d < D) {
+      for (int c = t; c < chunks; c += kRows)
+        cp_async16(xs[buf] + 4 * c, xg + d * x_div + 4 * c);
+      if (t < kWords / 2)
+        cp_async16(cs[buf] + 2 * t, cg + d * c_div + 2 * t);
     }
-    const size_t o = static_cast<size_t>(b0 + i) * R + r;
-    survive[o] = alive ? 1 : 0;
-    evals[o] = ev;
+    cp_async_commit();
+  };
+
+  stage_division(0, 0);
+  stage_division(1, 1);
+  uint32_t cur[2 * SW], nxt[2 * SW];
+#pragma unroll
+  for (int w = 0; w < 2 * SW; ++w) cur[w] = nxt[w] = 0;
+  int kmax = -1, knxt = -1;   // rows past R never match
+  if (row_ok) {
+    load_row<SW>(cur, pg);
+    kmax = __ldg(kg);
+    if (D > 1) {
+      load_row<SW>(nxt, pg + p_div);
+      knxt = __ldg(kg + R);
+    }
+  }
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // Division 0: every pair is evaluated.  Rows that never or always match
+  // take their masks whole; the others test every class of the tile.
+  u64 live, live0;
+  {
+    const bool always = always_matches<SW>(cur, kmax);
+    const bool testing = kmax >= 0 && !always;
+    u64 m = always ? all : 0;
+    if (__any_sync(kAll, testing)) {
+      const bool popc = __any_sync(kAll, testing && kmax > 0);
+      const u64 fail = failing<SW>(popc, all, xs[0], cs[0], cur, kmax);
+      if (testing) m = all & ~fail;
+    }
+    live = live0 = m;
+  }
+
+  for (int d = 1; d < D; ++d) {
+    // Every thread is done with division d-1, so buffer (d+1) & 1 is free.
+    if (!__syncthreads_or(live != 0)) break;
+    stage_division((d + 1) & 1, d + 1);
+#pragma unroll
+    for (int w = 0; w < 2 * SW; ++w) cur[w] = nxt[w];
+    kmax = knxt;
+    if (row_ok && d + 1 < D) {
+      load_row<SW>(nxt, pg + static_cast<size_t>(d + 1) * p_div);
+      knxt = __ldg(kg + static_cast<size_t>(d + 1) * R);
+    }
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const bool testing =
+        live != 0 && kmax >= 0 && !always_matches<SW>(cur, kmax);
+    u64 dead = kmax < 0 ? live : 0;   // never matches: every live pair dies
+    const u64 todo = testing ? live : 0;
+    if (__any_sync(kAll, todo != 0)) {
+      const bool popc = __any_sync(kAll, testing && kmax > 0);
+      const u64 fail =
+          failing<SW>(popc, todo, xs[d & 1], cs[d & 1], cur, kmax);
+      if (testing) dead = live & fail;
+    }
+    for (uint32_t m = static_cast<uint32_t>(dead); m; m &= m - 1)
+      ev[__ffs(m) - 1][t] = static_cast<uint16_t>(d + 1);
+    for (uint32_t m = static_cast<uint32_t>(dead >> 32); m; m &= m - 1)
+      ev[31 + __ffs(m)][t] = static_cast<uint16_t>(d + 1);
+    live &= ~dead;
+  }
+  cp_async_wait<0>();   // no copy may land after the block has left
+  if (!row_ok) return;
+
+  // Alive at the end: every division; dead after division 0: the division
+  // recorded in ev; dead in division 0: one.
+  const size_t o = static_cast<size_t>(b0) * R + r;
+#pragma unroll
+  for (int c = 0; c < kWords / 32; ++c) {
+    const uint32_t alive = static_cast<uint32_t>(live >> (32 * c));
+    const uint32_t past0 = static_cast<uint32_t>(live0 >> (32 * c));
+    for (int j = 0; j < 32; ++j) {
+      const int i = 32 * c + j;
+      if (i >= nb) break;
+      const size_t oi = o + static_cast<size_t>(i) * R;
+      const bool a = (alive >> j) & 1u;
+      __stcs(survive + oi, a ? 1 : 0);
+      __stcs(evals + oi, a ? D : ((past0 >> j) & 1u
+                                      ? static_cast<int32_t>(ev[i][t])
+                                      : 1));
+    }
   }
 }
 
-// Any division width: the same walk with the word count read at run time.
-__global__ void __launch_bounds__(kRowsPerBlock)
-tcam_packed_kernel_any(const uint32_t* __restrict__ x,
-                       const uint32_t* __restrict__ val,
-                       const uint32_t* __restrict__ care,
-                       const int32_t* __restrict__ kmax,
-                       int32_t* __restrict__ survive,
-                       int32_t* __restrict__ evals, int B, int R, int W32,
-                       int SW, int batch_per_block) {
-  extern __shared__ uint32_t xs[];
-  const int b0 = blockIdx.y * batch_per_block;
-  const int nb = min(batch_per_block, B - b0);
-  load_batch_tile(xs, x, b0, nb, W32);
-
-  const int r = blockIdx.x * kRowsPerBlock + threadIdx.x;
+// Any division width: a thread per row walks each word of its tile through
+// the divisions, reading the packed operands from global memory.
+__global__ void __launch_bounds__(kRows)
+packed_bits_any(const uint32_t* __restrict__ xw,
+                const uint32_t* __restrict__ vc,
+                const int32_t* __restrict__ kt, int32_t* __restrict__ survive,
+                int32_t* __restrict__ evals, int B, int Bp, int R, int D,
+                int SW) {
+  const int r = blockIdx.x * kRows + threadIdx.x;
   if (r >= R) return;
-  const int D = W32 / SW;
-  const uint32_t* vr = val + static_cast<size_t>(r) * W32;
-  const uint32_t* cr = care + static_cast<size_t>(r) * W32;
-  const int32_t* kr = kmax + static_cast<size_t>(r) * D;
+  const int b0 = blockIdx.y * kWords;
+  const int nb = min(kWords, B - b0);
   for (int i = 0; i < nb; ++i) {
-    const uint32_t* xb = xs + i * W32;
+    const int b = b0 + i;
     int ev = 0;
     bool alive = true;
     for (int d = 0; alive && d < D; ++d) {
+      const uint32_t* x = xw + (static_cast<size_t>(d) * Bp + b) * SW;
+      const uint32_t* p = vc + (static_cast<size_t>(d) * R + r) * 2 * SW;
       int m = 0;
-      for (int w = d * SW; w < (d + 1) * SW; ++w)
-        m += __popc((xb[w] ^ __ldg(vr + w)) & __ldg(cr + w));
+      for (int k = 0; k < SW; ++k)
+        m += __popc((__ldg(x + k) ^ __ldg(p + k)) & __ldg(p + SW + k));
       ++ev;
-      alive = m <= __ldg(kr + d);
+      alive = m <= __ldg(kt + static_cast<size_t>(d) * R + r);
     }
-    const size_t o = static_cast<size_t>(b0 + i) * R + r;
-    survive[o] = alive ? 1 : 0;
-    evals[o] = ev;
+    const size_t o = static_cast<size_t>(b) * R + r;
+    __stcs(survive + o, alive ? 1 : 0);
+    __stcs(evals + o, ev);
   }
 }
 
 template <int SW>
-void launch(dim3 grid, size_t smem, cudaStream_t stream, const uint32_t* x,
-            const uint32_t* val, const uint32_t* care, const int32_t* kmax,
-            int32_t* survive, int32_t* evals, int B, int R, int W32, int bb) {
-  tcam_packed_kernel<SW><<<grid, kRowsPerBlock, smem, stream>>>(
-      x, val, care, kmax, survive, evals, B, R, W32, W32 / SW, bb);
+int launch_tiled(dim3 grid, cudaStream_t stream, const uint32_t* xw,
+                 const uint32_t* vc, const int32_t* kt, u64* same,
+                 int32_t* sv, int32_t* ev, int B, int Bp, int R, int D) {
+  word_classes<SW><<<dim3(grid.y, D), kWords, 0, stream>>>(xw, same, B, Bp);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  packed_bits_kernel<SW><<<grid, kRows, 0, stream>>>(xw, vc, kt, same, sv, ev,
+                                                     B, Bp, R, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x (B, W32), val and care (R, W32) packed words; kmax (R, W32/SW) int32;
-// survive and evals (B, R) int32 outputs.  All row-major, contiguous and
-// 16-byte aligned.  Launches on `stream`; returns cudaGetLastError().
-extern "C" int dt2cam_tcam_packed(const void* x, const void* val,
-                                  const void* care, const void* kmax,
-                                  void* survive, void* evals, int B, int R,
-                                  int W32, int SW, void* stream) {
+// The packed match: xw (D, Bp, SW), vc (D, R, 2·SW) uint32, kmax_t (D, R)
+// int32; `classes` is scratch of D·ceil(B/64)·64 uint64 (the equal-word
+// classes, made here by word_classes); survive and evals (B, R) int32
+// outputs.  All contiguous, S % 32 == 0.  Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int dt2cam_tcam_packed_bits(const void* xw, const void* vc,
+                                       const void* kmax_t, void* classes,
+                                       void* survive, void* evals, int B,
+                                       int Bp, int R, int D, int S,
+                                       void* stream) {
   if (B <= 0 || R <= 0) return 0;
-  if (SW <= 0 || W32 <= 0 || W32 % SW != 0) return cudaErrorInvalidValue;
-  const size_t row_bytes = static_cast<size_t>(W32) * sizeof(uint32_t);
-  const int bb = static_cast<int>(
-      row_bytes * kMaxBatchPerBlock <= kSmemBudget ? kMaxBatchPerBlock
-                                                   : kSmemBudget / row_bytes);
-  if (bb < 1) return cudaErrorInvalidValue;
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock, (B + bb - 1) / bb);
+  if (S <= 0 || S % 32 != 0 || D <= 0 || D > 65535 || Bp < B || Bp % 4 != 0)
+    return cudaErrorInvalidValue;
+  if (!aligned16(xw) || !aligned16(vc) || !aligned16(classes))
+    return cudaErrorMisalignedAddress;
+  const dim3 grid((R + kRows - 1) / kRows, (B + kWords - 1) / kWords);
   if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  const size_t smem = bb * row_bytes;
   auto* s = static_cast<cudaStream_t>(stream);
-  auto* xw = static_cast<const uint32_t*>(x);
-  auto* vw = static_cast<const uint32_t*>(val);
-  auto* cw = static_cast<const uint32_t*>(care);
-  auto* km = static_cast<const int32_t*>(kmax);
+  auto* x = static_cast<const uint32_t*>(xw);
+  auto* p = static_cast<const uint32_t*>(vc);
+  auto* k = static_cast<const int32_t*>(kmax_t);
+  auto* c = static_cast<u64*>(classes);
   auto* sv = static_cast<int32_t*>(survive);
   auto* ev = static_cast<int32_t*>(evals);
-  switch (SW) {
-    case 1: launch<1>(grid, smem, s, xw, vw, cw, km, sv, ev, B, R, W32, bb); break;
-    case 2: launch<2>(grid, smem, s, xw, vw, cw, km, sv, ev, B, R, W32, bb); break;
-    case 4: launch<4>(grid, smem, s, xw, vw, cw, km, sv, ev, B, R, W32, bb); break;
+  switch (S / 32) {
+    case 1: return launch_tiled<1>(grid, s, x, p, k, c, sv, ev, B, Bp, R, D);
+    case 2: return launch_tiled<2>(grid, s, x, p, k, c, sv, ev, B, Bp, R, D);
+    case 3: return launch_tiled<3>(grid, s, x, p, k, c, sv, ev, B, Bp, R, D);
+    case 4: return launch_tiled<4>(grid, s, x, p, k, c, sv, ev, B, Bp, R, D);
     default:
-      tcam_packed_kernel_any<<<grid, kRowsPerBlock, smem, s>>>(
-          xw, vw, cw, km, sv, ev, B, R, W32, SW, bb);
+      packed_bits_any<<<grid, kRows, 0, s>>>(x, p, k, sv, ev, B, Bp, R, D,
+                                             S / 32);
+      return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// Which kernel dt2cam_tcam_packed_bits launches for division width S:
+// 1 for the tiled kernel, 0 for packed_bits_any.
+extern "C" int dt2cam_packed_bits_tiled(int S) {
+  return S / 32 <= kMaxTiledSW ? 1 : 0;
 }
 
 extern "C" const char* dt2cam_error_string(int code) {

@@ -3,9 +3,10 @@
 Each source under ``src/repro_torch/csrc/`` is compiled on first use by
 ``nvcc`` into its own shared library with a plain C interface, loaded with
 ``ctypes``.  The library lands in ``build/kernels/`` at the repository root,
-named by a hash of its source and flags, so an edited source rebuilds and an
-unchanged one loads at once.  Nothing is compiled when this module is
-imported: the CPU tests import every module on machines without ``nvcc``.
+named by a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one loads at
+once.  Nothing is compiled when this module is imported: the CPU tests
+import every module on machines without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -21,10 +22,10 @@ import torch
 
 from .ref import words_per_division
 
-__all__ = ["KERNEL_SOURCES", "MATCH_PATH_LAUNCHES", "build_all",
-           "check_banked_args", "check_bits_args", "check_match_args",
-           "launch_match", "launch_match_bits", "launch_pack", "load_kernel",
-           "match_path"]
+__all__ = ["KERNEL_SOURCES", "MATCH_PATH_LAUNCHES", "PACKED_PATH_LAUNCHES",
+           "build_all", "check_banked_args", "check_bits_args",
+           "check_match_args", "launch_match_bits", "launch_pack",
+           "launch_packed_bits", "load_kernel", "match_path", "packed_path"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -33,9 +34,10 @@ KERNEL_SOURCES = ("tcam_match", "tcam_packed")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Launches of the bitplane match kernel by path: "tiled" (S <= 128, the
-# shared-memory tiled kernel) or "any" (wider divisions).
+# Launches of the bitplane and of the packed match kernel by path: "tiled"
+# (S <= 128, the shared-memory tiled kernel) or "any" (wider divisions).
 MATCH_PATH_LAUNCHES = {"tiled": 0, "any": 0}
+PACKED_PATH_LAUNCHES = {"tiled": 0, "any": 0}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -53,8 +55,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
@@ -156,20 +161,22 @@ def check_banked_args(x, is0, is1, kmax, s: int) -> torch.device:
     return dev
 
 
-def check_bits_args(x, planes, kmax_t, s: int) -> torch.device:
+def check_bits_args(x, planes, kmax_t, s: int,
+                    name: str = "planes") -> torch.device:
     """Argument checks of the packed-operand entries: x (G, B, W) uint8,
-    planes (G, D, R, 2·SW) and kmax_t (G, D, R) int32, W = D·s; returns
-    the device."""
+    ``name`` (the bitplane kernel's planes or the packed kernel's vc)
+    (G, D, R, 2·SW) and kmax_t (G, D, R) int32, W = D·s; returns the
+    device."""
     dev = x.device
     _check(x, "xbits", torch.uint8, 3, dev)
-    _check(planes, "planes", torch.int32, 4, dev)
+    _check(planes, name, torch.int32, 4, dev)
     _check(kmax_t, "kmax_t", torch.int32, 3, dev)
     g, _, w = x.shape
     if s <= 0 or w % s:
         raise ValueError(f"width {w} is not a multiple of {s}")
     d, sw = w // s, words_per_division(s)
     if planes.shape[:2] != (g, d) or planes.shape[3] != 2 * sw:
-        raise ValueError(f"planes shape {tuple(planes.shape)} != "
+        raise ValueError(f"{name} shape {tuple(planes.shape)} != "
                          f"{(g, d, 'R', 2 * sw)}")
     if tuple(kmax_t.shape) != (g, d, planes.shape[2]):
         raise ValueError(f"kmax_t shape {tuple(kmax_t.shape)} != "
@@ -194,15 +201,6 @@ def _launch(fn_name: str, lib_name: str, out_shape: tuple, ptrs: tuple,
     _raise_on(lib, fn_name,
               fn(*ptrs, survive.data_ptr(), evals.data_ptr(), *ints, stream))
     return survive, evals
-
-
-def launch_match(fn_name: str, lib_name: str, x, a, b, kmax, width: int,
-                 division: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch one single-bank match kernel; (B, R) int32 outputs."""
-    n_b, n_r = x.shape[0], a.shape[0]
-    return _launch(fn_name, lib_name, (n_b, n_r),
-                   (x.data_ptr(), a.data_ptr(), b.data_ptr(), kmax.data_ptr()),
-                   (n_b, n_r, width, division), x.device)
 
 
 def _raise_on(lib: ctypes.CDLL, fn_name: str, rc: int) -> None:
@@ -237,12 +235,22 @@ def launch_pack(a: torch.Tensor, b, s: int, rows_pad: int) -> torch.Tensor:
     return out
 
 
+def _path(lib_name: str, fn_name: str, s: int) -> str:
+    tiled = getattr(load_kernel(lib_name), fn_name)
+    tiled.argtypes, tiled.restype = [ctypes.c_int], ctypes.c_int
+    return "tiled" if tiled(s) else "any"
+
+
 def match_path(s: int) -> str:
     """The bitplane kernel's path for division width ``s``, as the kernel's
     own dispatch (``dt2cam_match_bits_tiled``) chooses it."""
-    tiled = load_kernel("tcam_match").dt2cam_match_bits_tiled
-    tiled.argtypes, tiled.restype = [ctypes.c_int], ctypes.c_int
-    return "tiled" if tiled(s) else "any"
+    return _path("tcam_match", "dt2cam_match_bits_tiled", s)
+
+
+def packed_path(s: int) -> str:
+    """The packed kernel's path for division width ``s``, as its dispatch
+    (``dt2cam_packed_bits_tiled``) chooses it."""
+    return _path("tcam_packed", "dt2cam_packed_bits_tiled", s)
 
 
 def launch_match_bits(xw: torch.Tensor, planes: torch.Tensor,
@@ -256,4 +264,22 @@ def launch_match_bits(xw: torch.Tensor, planes: torch.Tensor,
                   (xw.data_ptr(), planes.data_ptr(), kmax_t.data_ptr()),
                   (g, n_b, bp, n_r, d, s), xw.device)
     MATCH_PATH_LAUNCHES[match_path(s)] += 1
+    return out
+
+
+def launch_packed_bits(xw: torch.Tensor, vc: torch.Tensor,
+                       kmax_t: torch.Tensor, n_b: int, s: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the packed kernel on division-major operands, xw (D, Bp, SW),
+    vc (D, R, 2·SW), kmax_t (D, R); (n_b, R) int32 outputs.  The kernel
+    first groups each tile's equal search words, into scratch allocated
+    here."""
+    d, bp, _ = xw.shape
+    n_r = vc.shape[1]
+    classes = torch.empty((d, -(-n_b // 64) * 64), dtype=torch.int64,
+                          device=xw.device)
+    out = _launch("dt2cam_tcam_packed_bits", "tcam_packed", (n_b, n_r),
+                  (xw.data_ptr(), vc.data_ptr(), kmax_t.data_ptr(),
+                   classes.data_ptr()), (n_b, bp, n_r, d, s), xw.device)
+    PACKED_PATH_LAUNCHES[packed_path(s)] += 1
     return out

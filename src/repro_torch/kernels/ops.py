@@ -7,8 +7,9 @@ Engines:
              state incl. SAF-induced CELL_MM.  The name is the JAX package's,
              kept so that an engine request means the same thing in both
              packages.
-  'packed' — bit-packed popcount kernel (tcam_packed.py, csrc/tcam_packed.cu);
-             requires S % 32 == 0 and no CELL_MM cells.
+  'packed' — bit-packed popcount kernel (tcam_packed.py, csrc/tcam_packed.cu)
+             on val/care words packed once per layout, division-major, in
+             the same format; requires S % 32 == 0 and no CELL_MM cells.
   'ref'    — the plain PyTorch oracle (ref.py), on whichever device is asked.
   'auto'   — packed when legal, else mxu.
 
@@ -16,7 +17,8 @@ All engines share the contract: inputs are the *padded search words* from
 ``TCAMLayout.pad_inputs`` (decoder bit + encoded features + padding) and the
 layout's cell grid; outputs are (survive, evals) as defined in ref.py.  The
 kernels mask ragged batch and row edges themselves, so nothing is padded to
-block multiples.
+block multiples.  On the card both kernels' search words are packed per
+call by the pack kernel (``pack_words_cuda``), never by a plain version.
 """
 from __future__ import annotations
 
@@ -31,9 +33,9 @@ from ..core.lut import CELL_MM, bitplanes
 from ..core.simulate import SimResult, sense_voltage
 from ..core.synth import TCAMLayout
 from ..device import DeviceLike, resolve_device
-from .ref import pack_bits, tcam_match_ref
+from .ref import tcam_match_ref
 from .tcam_match import pack_planes_cuda, tcam_match_bits_cuda
-from .tcam_packed import tcam_match_packed_cuda
+from .tcam_packed import tcam_match_packed_bits_cuda
 
 __all__ = ["tcam_match", "tcam_infer", "sa_kmax", "select_engine",
            "finalize_result", "ENGINES", "MatchOperands", "prepare_match",
@@ -70,11 +72,12 @@ def _on(a: ArrayLike, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class MatchOperands:
-    """One layout's device-resident match operands for a resolved engine:
-    for 'mxu' the packed planes ``a`` (D, R, 2·SW) int32 (``ref.pack_planes``)
-    with ``b`` None and ``kmax`` transposed to (D, R); for 'packed' the
-    packed words ``a = val, b = care`` and for 'ref' the uint8 planes
-    ``a = is0, b = is1``, both with ``kmax`` (R, D) int32."""
+    """One layout's device-resident match operands for a resolved engine.
+    For the two kernels, ``a`` is (D, R, 2·SW) int32 words packed on the
+    device (``pack_planes_cuda``), ``b`` None and ``kmax`` transposed to
+    (D, R): for 'mxu' the planes is0 then is1 per (division, row), for
+    'packed' ``vc``, val = is1 then care = is0 | is1.  For 'ref' the uint8
+    planes ``a = is0, b = is1`` with ``kmax`` (R, D) int32."""
 
     engine: str
     s: int
@@ -102,17 +105,14 @@ def prepare_match(
     km = (torch.zeros((r, w // s), dtype=torch.int32, device=dev)
           if kmax is None else _on(kmax, torch.int32, dev))
     is0, is1 = bitplanes(cells)
-    if engine == "packed":
-        a = pack_bits(_on(is1, torch.uint8, dev))
-        b = pack_bits(_on(is0 | is1, torch.uint8, dev))
-    elif engine == "mxu":
-        planes = pack_planes_cuda(_on(is0, torch.uint8, dev)[None],
-                                  _on(is1, torch.uint8, dev)[None], s=s)
-        return MatchOperands(engine=engine, s=s, a=planes[0], b=None,
-                             kmax=km.t().contiguous())
-    else:
-        a, b = _on(is0, torch.uint8, dev), _on(is1, torch.uint8, dev)
-    return MatchOperands(engine=engine, s=s, a=a, b=b, kmax=km)
+    if engine == "ref":
+        return MatchOperands(engine=engine, s=s, a=_on(is0, torch.uint8, dev),
+                             b=_on(is1, torch.uint8, dev), kmax=km)
+    p0, p1 = (is0, is1) if engine == "mxu" else (is1, is0 | is1)
+    words = pack_planes_cuda(_on(p0, torch.uint8, dev)[None],
+                             _on(p1, torch.uint8, dev)[None], s=s)
+    return MatchOperands(engine=engine, s=s, a=words[0], b=None,
+                         kmax=km.t().contiguous())
 
 
 def run_match(ops: MatchOperands, xpad: torch.Tensor
@@ -120,8 +120,7 @@ def run_match(ops: MatchOperands, xpad: torch.Tensor
     """(B, W) uint8 padded search words on the operands' device ->
     (survive, evals), both (B, R) int32."""
     if ops.engine == "packed":
-        return tcam_match_packed_cuda(pack_bits(xpad), ops.a, ops.b, ops.kmax,
-                                      s=ops.s)
+        return tcam_match_packed_bits_cuda(xpad, ops.a, ops.kmax, s=ops.s)
     if ops.engine == "mxu":
         return tcam_match_bits_cuda(xpad, ops.a, ops.kmax, s=ops.s)
     return tcam_match_ref(xpad, ops.a, ops.b, ops.s, ops.kmax)

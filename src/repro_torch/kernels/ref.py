@@ -31,7 +31,12 @@ CPU): bit ``i`` of word ``j`` is column ``32*j + i``.
 The bitplane kernel's operands are packed per division and division-major
 (``pack_words``, ``pack_planes``): each division's S cells fill SW =
 ceil(S/32) words, zero-padded; ``tcam_match_bits_ref`` is its arithmetic,
-``Σ popc((x & P0) | (~x & P1))`` per division.
+``Σ popc((x & P0) | (~x & P1))`` per division.  The packed kernel's
+operands are the same format (S % 32 == 0, so nothing is padded) with
+``val = pack(is1)`` and ``care = pack(is0 | is1)`` in place of the two
+planes; ``tcam_match_packed_bits_ref`` is its arithmetic,
+``Σ popc((x ^ val) & care)``, and ``packed_division_major`` rearranges the
+row-major packed words into that format.
 """
 from __future__ import annotations
 
@@ -40,8 +45,9 @@ from typing import Optional
 import torch
 
 __all__ = ["tcam_match_ref", "tcam_match_banked_ref", "tcam_match_packed_ref",
-           "tcam_match_bits_ref", "pack_bits", "pack_divisions", "pack_planes",
-           "pack_words", "popcount32", "words_per_division"]
+           "tcam_match_bits_ref", "tcam_match_packed_bits_ref",
+           "packed_division_major", "pack_bits", "pack_divisions",
+           "pack_planes", "pack_words", "popcount32", "words_per_division"]
 
 
 def _carry(mism_of, shape: tuple, d: int, limit_of,
@@ -239,3 +245,51 @@ def tcam_match_bits_ref(
 
     return _carry(mism, (*xw.shape[:-3], b, r), d,
                   lambda j: kmax_t[..., j, None, :], xw.device)
+
+
+def tcam_match_packed_bits_ref(
+    xw: torch.Tensor,       # (D, Bp, SW) int32, from pack_words
+    vc: torch.Tensor,       # (D, R, 2·SW) int32: val's words, then care's
+    kmax_t: torch.Tensor,   # (D, R) int32, kmax transposed
+    b: int,                 # search words (the first b of Bp)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The packed kernel's arithmetic on its division-major operands: a
+    division's mismatch count is ``Σ popc((x ^ val) & care)`` over its SW
+    words, then the same carry as ``tcam_match_packed_ref``.  Returns
+    (survive, evals), both (b, R) int32."""
+    sw = xw.shape[-1]
+    d, r = vc.shape[0], vc.shape[1]
+    if vc.shape[-1] != 2 * sw or xw.shape[0] != d:
+        raise ValueError(f"packed shapes disagree: words {tuple(xw.shape)}, "
+                         f"vc {tuple(vc.shape)}")
+    x = xw[:, :b]
+
+    def mism(j: int) -> torch.Tensor:
+        m = torch.zeros((b, r), dtype=torch.int32, device=xw.device)
+        for k in range(sw):
+            val, care = vc[j, None, :, k], vc[j, None, :, sw + k]
+            m += popcount32((x[j, :, k, None] ^ val) & care)
+        return m
+
+    return _carry(mism, (b, r), d, lambda j: kmax_t[j, None, :], xw.device)
+
+
+def packed_division_major(
+    xpacked: torch.Tensor,   # (B, W32) int32
+    val: torch.Tensor,       # (R, W32) int32
+    care: torch.Tensor,      # (R, W32) int32
+    kmax: torch.Tensor,      # (R, D) int32
+    s: int,                  # division width in bits (multiple of 32)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Row-major packed operands (``tcam_match_packed_ref``'s) -> the packed
+    kernel's: xw (D, Bp, SW) as ``pack_words`` lays them out, vc (D, R,
+    2·SW) and kmax_t (D, R), on the operands' device."""
+    b, w32 = xpacked.shape
+    r = val.shape[0]
+    sw = s // 32
+    d = w32 // sw
+    xw = torch.nn.functional.pad(xpacked.reshape(b, d, sw).transpose(0, 1),
+                                 (0, 0, 0, -b % 4))
+    vc = torch.cat((val.reshape(r, d, sw), care.reshape(r, d, sw)), dim=-1)
+    return (xw.contiguous(), vc.transpose(0, 1).contiguous(),
+            kmax.t().contiguous())

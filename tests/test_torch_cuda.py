@@ -18,6 +18,15 @@ kernel against ``pack_bits`` and the plain packing, the prepacked entries
 (the main path's) against the uint8 ones, tile-edge shapes (B and R one
 either side of the 128 x 128 tile), a case of divergent warps, and the
 launch counts by path.
+
+The packed kernel runs on division-major operands too (``vc`` = val and
+care words per (division, row)): its prepacked entry (the main path's)
+against both plain versions over the sweep, tile edges
+(B = 63/64/65, R = 127/128/129 around its 128-row x 64-word tile), one
+warp whose rows take every test (kmax -1, 0, > 0 and all-don't-care
+divisions), search words repeated within a tile (the kernel tests one
+word per class of equal words), the wide path (S = 160, 256) with launch
+counts by path, and its row-major entry against the prepacked one.
 """
 import numpy as np
 import pytest
@@ -368,4 +377,166 @@ def test_banked_prepacked_entry_equals_uint8_entry(cuda):
     torch.cuda.synchronize()
     assert tk.tcam_match_banked_bits_cuda.launches == before + 1
     for g, w in zip(got, tk.tcam_match_banked_cuda(x, is0, is1, km, s=128)):
+        assert torch.equal(g, w)
+
+
+# -- the packed kernel on division-major operands ---------------------------
+PACKED_SWEEP = ([c for c in SWEEP if c[2] % 32 == 0]
+                + [(1000, 500, 128, 300), (70, 300, 96, 40)])
+
+
+def _packed_operands(x, is0, is1, km, s):
+    """vc = (val, care) words packed on the card, and kmax transposed."""
+    return (tk.pack_planes_cuda(is1[None], (is0 | is1)[None], s=s)[0],
+            km.t().contiguous())
+
+
+def _packed_plain(x, vc, kt, s):
+    return tk.tcam_match_packed_bits_ref(tk.pack_words(x[None], s)[0], vc, kt,
+                                         x.shape[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["zero", "pos", "mixed", "masked"])
+@pytest.mark.parametrize("rows,width,s,b", PACKED_SWEEP)
+def test_packed_prepacked_entry_equals_plain_on_card(cuda, rows, width, s, b,
+                                                     kind):
+    x, is0, is1, km = _kernel_operands(rows, width, s, b, kind, False, cuda)
+    vc, kt = _packed_operands(x, is0, is1, km, s)
+    before = (tk.tcam_match_packed_bits_cuda.launches,
+              tk.pack_words_cuda.launches, tk.tcam_match_packed_cuda.launches)
+    got = tk.tcam_match_packed_bits_cuda(x, vc, kt, s=s)
+    torch.cuda.synchronize()
+    assert (tk.tcam_match_packed_bits_cuda.launches,
+            tk.pack_words_cuda.launches,
+            tk.tcam_match_packed_cuda.launches) == (before[0] + 1,
+                                                    before[1] + 1, before[2])
+    for g, w in zip(got, _packed_plain(x, vc, kt, s)):
+        assert torch.equal(g, w)
+    xq, val, care = (tk.pack_bits(t) for t in (x, is1, is0 | is1))
+    for g, w in zip(got, tk.tcam_match_packed_plain(xq, val, care, s, km)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [32, 128])
+@pytest.mark.parametrize("b", [63, 64, 65])
+@pytest.mark.parametrize("rows", [127, 128, 129])
+def test_packed_kernel_at_tile_edges(cuda, rows, b, s):
+    """Random cells and kmax in {-1, 0, 1, S}, with B and R at and one either
+    side of the packed kernel's 128-row x 64-word tile."""
+    d = 4
+    gen = torch.Generator(device=cuda).manual_seed(rows + b + s)
+    cells = torch.randint(0, 3, (rows, d * s), device=cuda, generator=gen)
+    is0 = (cells == 0).to(torch.uint8)
+    is1 = (cells == 1).to(torch.uint8)
+    x = torch.randint(0, 2, (b, d * s), device=cuda, generator=gen,
+                      dtype=torch.uint8)
+    choice = torch.tensor([-1, 0, 1, s], dtype=torch.int32, device=cuda)
+    km = choice[torch.randint(0, 4, (rows, d), device=cuda, generator=gen)]
+    km[:, 0] = s // 2 + 8          # most pairs reach division 1
+    vc, kt = _packed_operands(x, is0, is1, km, s)
+    got = tk.tcam_match_packed_bits_cuda(x, vc, kt, s=s)
+    want = _packed_plain(x, vc, kt, s)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert len(torch.unique(want[1])) >= 3     # pairs die in several divisions
+
+
+@pytest.mark.gpu
+def test_packed_kernel_warp_of_mixed_tests(cuda):
+    """Within each warp, lane l % 4 picks the row's test in every division
+    after the first: 0 kmax -1 (never), 1 kmax 0 (the OR test), 2 kmax 2
+    (the popcount sum), 3 an all-don't-care division (always, no word
+    loads).  Rows hold word (l % 8)'s bits with a few cells flipped, so
+    pairs die in many divisions."""
+    s, d, b, r = 64, 6, 2 * 64 + 5, 2 * 128 + 3
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randint(0, 2, (b, d * s), device=cuda, generator=gen,
+                      dtype=torch.uint8)
+    lane = torch.arange(r, device=cuda) % 32
+    bits = x[lane % 8].clone()
+    flip = torch.rand((r, d * s), device=cuda, generator=gen) < 0.01
+    bits[flip] ^= 1
+    is1 = bits
+    is0 = 1 - bits
+    km = torch.zeros((r, d), dtype=torch.int32, device=cuda)
+    km[lane % 4 == 2, 1:] = 2
+    never = (lane % 4 == 0) & (torch.arange(r, device=cuda) % 3 == 0)
+    km[never, 3] = -1
+    blank = lane % 4 == 3
+    is0[blank, s:3 * s] = 0
+    is1[blank, s:3 * s] = 0
+    vc, kt = _packed_operands(x, is0, is1, km, s)
+    survive, evals = tk.tcam_match_packed_bits_cuda(x, vc, kt, s=s)
+    want = _packed_plain(x, vc, kt, s)
+    assert torch.equal(survive, want[0]) and torch.equal(evals, want[1])
+    assert len(torch.unique(evals)) == d and 0 < int(survive.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["zero", "mixed"])
+@pytest.mark.parametrize("s,b", [(32, 200), (96, 65), (128, 130)])
+def test_packed_kernel_repeated_words(cuda, s, b, kind):
+    """Search words drawn from a few values per division, as encoded
+    queries are: the kernel tests one word of each class of equal words in
+    a tile and applies the result to the class."""
+    d, rows = 5, 300
+    gen = torch.Generator(device=cuda).manual_seed(s + b)
+    pool = torch.randint(0, 2, (4, d * s), device=cuda, generator=gen,
+                         dtype=torch.uint8)
+    pick = torch.randint(0, 4, (b, d), device=cuda, generator=gen)
+    x = torch.gather(pool, 0, pick.repeat_interleave(s, 1))
+    rowpick = torch.randint(0, 4, (rows, d), device=cuda, generator=gen)
+    bits = torch.gather(pool, 0, rowpick.repeat_interleave(s, 1))
+    keep = torch.rand((rows, d * s), device=cuda, generator=gen) < 0.5
+    is1 = (bits & keep).to(torch.uint8)
+    is0 = ((1 - bits) & keep).to(torch.uint8)
+    km = torch.zeros((rows, d), dtype=torch.int32, device=cuda)
+    if kind == "mixed":
+        km = torch.randint(-1, 3, (rows, d), device=cuda, generator=gen,
+                           dtype=torch.int32)
+    vc, kt = _packed_operands(x, is0, is1, km, s)
+    got = tk.tcam_match_packed_bits_cuda(x, vc, kt, s=s)
+    want = _packed_plain(x, vc, kt, s)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert 0 < int(want[0].sum()) < b * rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,s,path", [(4992, 128, "tiled"),    # credit tree
+                                      (384, 96, "tiled"),
+                                      (320, 32, "tiled"),
+                                      (480, 160, "any"),
+                                      (512, 256, "any")])
+def test_packed_kernel_path_by_division_width(cuda, w, s, path):
+    x, is0, is1, km = _kernel_operands(300, w - 1, s, 200, "mixed", False,
+                                       cuda)
+    assert x.shape[1] == w
+    vc, kt = _packed_operands(x, is0, is1, km, s)
+    before = dict(tk.PACKED_PATH_LAUNCHES)
+    bitplane = dict(tk.MATCH_PATH_LAUNCHES)
+    got = tk.tcam_match_packed_bits_cuda(x, vc, kt, s=s)
+    torch.cuda.synchronize()
+    assert tk.PACKED_PATH_LAUNCHES[path] == before[path] + 1
+    other = "any" if path == "tiled" else "tiled"
+    assert tk.PACKED_PATH_LAUNCHES[other] == before[other]
+    assert tk.MATCH_PATH_LAUNCHES == bitplane
+    for g, w_ in zip(got, _packed_plain(x, vc, kt, s)):
+        assert torch.equal(g, w_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,width,s,b", PACKED_SWEEP)
+def test_row_major_packed_entry_equals_prepacked_entry(cuda, rows, width, s,
+                                                       b):
+    x, is0, is1, km = _kernel_operands(rows, width, s, b, "mixed", False,
+                                       cuda)
+    vc, kt = _packed_operands(x, is0, is1, km, s)
+    xq, val, care = (tk.pack_bits(t) for t in (x, is1, is0 | is1))
+    before = tk.tcam_match_packed_bits_cuda.launches
+    got = tk.tcam_match_packed_cuda(xq, val, care, km, s=s)
+    assert tk.tcam_match_packed_bits_cuda.launches == before
+    for g, w in zip(got, tk.tcam_match_packed_bits_cuda(x, vc, kt, s=s)):
         assert torch.equal(g, w)
