@@ -53,9 +53,24 @@ Phases (any failed check raises, so the script exits non-zero):
    group), through the prepacked entry on ``prepare_banked`` operands with
    the same added figures as phase 4, timed beside a bf16 ``torch.bmm``
    yardstick and its bound; then
-   forest serving of 4096 queries with engines mxu and auto (= banked),
-   equal to the executor;
-7. the kernels line, the card's name and power limit, and the last line:
+   forest serving of 4096 queries with engines mxu and auto (= mxu on the
+   card), equal to the executor, each launching the banked kernel;
+7. chip health and model lifecycle at credit width (``health_phase``), with
+   the kernels' counters zeroed before and read after (the bitplane, packed
+   and banked kernels each launched): serving with a canary after every
+   batch; BIST on the card on a faulted 8832-row layout (256 spare rows)
+   held against the plain per-row loop on a sample of rows, repair, a
+   clean re-test, and serving equal to ``tcam_infer`` on the repaired
+   grid with survivors on spare rows; the circuit breaker's ladder on a
+   chip whose canary trips, with the launches of every batch before the
+   rung it reached; ``row_utilization`` over the training inputs through
+   the kernel, held against its plain version; per-bank BIST and repair
+   of the credit forest served on mxu and equal to a banked server;
+   ``ReplicatedServer`` with three chips; and the lifecycle: a delta plan
+   to a candidate tree of half the leaves with its write figures and wear,
+   stage / mirror / promote / rollback each serving equal to
+   ``tcam_infer``, and a registry round trip of both models;
+8. the kernels line, the card's name and power limit, and the last line:
    ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.
@@ -85,6 +100,18 @@ FOREST_DATASET = "credit"    # the forest phase: train_forest's defaults here,
 FOREST_TREES = 25            # 25 bagged trees at max_depth=12, seed 0,
 FOREST_S = 128               # compiled at S=128
 FOREST_SLICE = 512           # queries checked on the banked and ref engines
+# phase 7: chip health and lifecycle at credit width
+HEALTH_SPARES = 256          # compile_tree(spare_rows=): 8832 x 4992 cells
+HEALTH_P = 3e-6              # p_sa0 = p_sa1: the spares suffice
+BREAKER_P = 1e-5             # the spares run out
+BREAKER_THRESHOLD = 0.99     # canary accuracy to hold: one miss in 32 trips
+BREAKER_SEEDS = range(6)     # first seed whose first canary trips
+FOREST_HEALTH_P = 5e-7       # flags rows in several of the forest's banks
+BIST_REF_ROWS = 128          # rows held against the plain per-row BIST
+UTIL_REF_INPUTS = 256        # inputs held against the plain row_utilization
+UTIL_REF_CHUNK = 64          # inputs per host thread's plain call
+HOST_THREADS = 8             # phase 7's host set-up and plain versions
+REPLICAS = 3
 REPLACES = {"tcam_match": "src/repro/kernels/tcam_match.py:38",
             "tcam_packed": "src/repro/kernels/tcam_packed.py:30",
             "tcam_match_banked": "src/repro/kernels/banked.py:147"}
@@ -451,8 +478,9 @@ def hard_vote(trees, X, n_classes: int):
     return np.argmax(counts, axis=1)
 
 
-def forest_phase(dev, bw: float, rates: dict) -> dict:
-    """Phase 6: the forest path.  Returns the banked kernel's record."""
+def forest_phase(dev, bw: float, rates: dict):
+    """Phase 6: the forest path.  Returns the banked kernel's record and the
+    compiled forest (phase 7 serves it again)."""
     import numpy as np
     import torch
 
@@ -587,41 +615,468 @@ def forest_phase(dev, bw: float, rates: dict) -> dict:
     active = res.active_evals[:, :n].sum(axis=0)
     energy = (active.astype(np.float64) * DEFAULT_HW.e_row
               + forest.n_banks * DEFAULT_HW.e_mem)
-    serve = {}
-    for engine in ("mxu", "auto"):
-        zero_counts()
-        with TCAMServer(forest, config=ServeConfig(engine=engine,
-                                                   max_batch=256),
-                        device=dev) as srv:
-            t0 = time.perf_counter()
-            builds = srv.warmup()
-            t_warm = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            futs = srv.submit_many(Xte[:n])
-            got = [f.result(timeout=600) for f in futs]
-            wall = time.perf_counter() - t0
-            stats = srv.metrics()
-        for f, arr in (("prediction", res.predictions[:n]),
-                       ("active_evals", active), ("energy_j", energy),
-                       ("n_survivors", np.full(n, forest.n_banks))):
-            check(np.array_equal([getattr(r, f) for r in got], arr),
-                  f"forest served ({engine}) {f} equals the executor's")
-        kernel_launches = tcam_match_banked_bits_cuda.launches
-        check((kernel_launches > 0) == (engine == "mxu"),
-              f"forest serving on {engine} launched the banked kernel "
-              f"{kernel_launches} times")
-        cl = stats["compute_latency"]
-        serve[engine] = {
-            "resolved_engine": stats["engine"], "requests": n,
-            "warmup_builds": builds, "warmup_s": t_warm, "wall_s": wall,
-            "requests_per_s": n / wall, "batches": stats["batches"],
-            "mean_batch_fill": stats["mean_batch_fill"],
-            "compute_p50_ms": cl["p50_ms"], "compute_p99_ms": cl["p99_ms"],
-            "total_p50_ms": stats["total_latency"]["p50_ms"],
-            "total_p99_ms": stats["total_latency"]["p99_ms"],
-            "banked_launches": kernel_launches}
+    # 'auto' resolves by device: the banked kernel ('mxu') on the card
+    zero_counts()
+    with TCAMServer(forest, config=ServeConfig(engine="auto", max_batch=256),
+                    device=dev) as srv:
+        t0 = time.perf_counter()
+        builds = srv.warmup()
+        t_warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        futs = srv.submit_many(Xte[:n])
+        got = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        stats = srv.metrics()
+    for f, arr in (("prediction", res.predictions[:n]),
+                   ("active_evals", active), ("energy_j", energy),
+                   ("n_survivors", np.full(n, forest.n_banks))):
+        check(np.array_equal([getattr(r, f) for r in got], arr),
+              f"forest served (auto) {f} equals the executor's")
+    kernel_launches = tcam_match_banked_bits_cuda.launches
+    check(stats["engine"] == "mxu" and kernel_launches > 0,
+          f"forest serving on auto resolved to {stats['engine']} and "
+          f"launched the banked kernel {kernel_launches} times")
+    cl = stats["compute_latency"]
+    serve = {"auto": {
+        "resolved_engine": stats["engine"], "requests": n,
+        "warmup_builds": builds, "warmup_s": t_warm, "wall_s": wall,
+        "requests_per_s": n / wall, "batches": stats["batches"],
+        "mean_batch_fill": stats["mean_batch_fill"],
+        "compute_p50_ms": cl["p50_ms"], "compute_p99_ms": cl["p99_ms"],
+        "total_p50_ms": stats["total_latency"]["p50_ms"],
+        "total_p99_ms": stats["total_latency"]["p99_ms"],
+        "banked_launches": kernel_launches}}
     log(json.dumps({"forest_serve": serve}))
-    return rec
+    return rec, forest
+
+
+def serve_timed(srv, X, timeout: float = 600.0) -> tuple[list, float]:
+    """Submit every row of ``X`` to a background server and wait for all;
+    returns the results and the wall seconds."""
+    t0 = time.perf_counter()
+    futs = srv.submit_many(X)
+    res = [f.result(timeout=timeout) for f in futs]
+    return res, time.perf_counter() - t0
+
+
+def serve_figures(srv, n: int, wall: float) -> dict:
+    stats = srv.metrics()
+    cl = stats["compute_latency"]
+    return {"engine": stats["engine"], "requests": n, "wall_s": wall,
+            "requests_per_s": n / wall, "batches": stats["batches"],
+            "compute_p50_ms": cl["p50_ms"], "compute_p99_ms": cl["p99_ms"]}
+
+
+def check_served(res, want, what: str) -> None:
+    """Served results against a ``SimResult`` of the same queries."""
+    import numpy as np
+    for f, arr in (("prediction", want.predictions),
+                   ("survivor", want.survivors),
+                   ("n_survivors", want.n_survivors),
+                   ("active_evals", want.active_evals)):
+        check(np.array_equal([getattr(r, f) for r in res], arr[:len(res)]),
+              f"{what}: served {f} equals tcam_infer's")
+
+
+def match_launches() -> int:
+    """Launches of the two single-bank match kernels so far."""
+    from repro_torch import kernels as tk
+    return (tk.tcam_match_bits_cuda.launches
+            + tk.tcam_match_packed_bits_cuda.launches)
+
+
+def health_phase(dev, tree, Xtr, ytr, Xte, golden, ideal, forest) -> None:
+    """Phase 7: chip health (BIST, repair, canary and breaker, k-chip
+    voting) and the model lifecycle on the card, at credit width.  ``tree``
+    is phase 3's credit tree, ``golden`` its own predictions on ``Xte`` and
+    ``ideal`` its ideal ``tcam_infer`` result there (LUT rows as survivors);
+    ``forest`` is phase 6's credit forest."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (NonIdealSpec, compile_tree, encode_inputs,
+                                  train_tree)
+    from repro_torch.dt import DATASETS
+    from repro_torch.kernels import tcam_infer, tcam_match_banked_bits_cuda
+    from repro_torch.lifecycle import (ModelRegistry, WearTracker,
+                                       content_hash, plan_delta, plan_full)
+    from repro_torch.reliability import (ReplicatedServer,
+                                         behavior_changed_rows,
+                                         first_survivors, row_utilization,
+                                         row_utilization_ref, run_bist,
+                                         run_bist_ref)
+    from repro_torch.serve import ServeConfig, TCAMServer
+
+    n = min(SERVE_REQUESTS, len(Xte))
+    Xq = Xte[:n]
+    t_phase = time.perf_counter()
+    zero_counts()
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # -- serving with a canary after every batch (ideal chip) -----------------
+    compiled = compile_tree(tree, s=128, spare_rows=HEALTH_SPARES)
+    lay = compiled.layout
+    used = 1 + lay.width
+    check(lay.cells.shape == (8832, 4992) and lay.n_rows == 8476,
+          f"credit layout with spares {lay.cells.shape}")
+    xq = encode_inputs(compiled.lut, Xq)
+    live = tcam_infer(lay, xq, device=dev)
+    check(np.array_equal(live.predictions, golden[:n])
+          and np.array_equal(live.survivors, ideal.survivors[:n]),
+          "the layout with spares answers as phase 3's")
+    with TCAMServer(compiled, device=dev,
+                    config=ServeConfig(max_batch=256,
+                                       canary_every_batches=1)) as srv:
+        srv.warmup()
+        res, wall = serve_timed(srv, Xq)
+    # read after close: the worker runs each batch's canary after resolving
+    # the batch's futures
+    fig = serve_figures(srv, n, wall)
+    fig["canary_runs"] = srv.metrics()["reliability"]["canary_runs"]
+    check(srv.health()["state"] == "healthy", "ideal chip stays healthy")
+    check(fig["canary_runs"] == fig["batches"], "one canary per batch")
+    check_served(res, live, "serving with the canary")
+    fig["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"health_canary_serve": fig}))
+
+    # every later step's server does its host set-up (stuck-fault draws,
+    # the canary's host matching, a second fit) here, in a pool that is
+    # drained before the first timed step, so no step's time carries it
+    spec = DATASETS["credit"]
+
+    def stuck(p: float) -> NonIdealSpec:
+        return NonIdealSpec(p_sa0=p, p_sa1=p)
+
+    def fit_candidate():
+        t0 = time.perf_counter()
+        tree2 = train_tree(Xtr, ytr, max_depth=spec.max_depth,
+                           max_leaves=spec.max_leaves // 2,
+                           min_samples_leaf=spec.min_samples_leaf)
+        cand = compile_tree(tree2, s=128, spare_rows=HEALTH_SPARES)
+        return cand, time.perf_counter() - t0
+
+    cfg = ServeConfig(max_batch=256, canary_every_batches=1, auto_repair=True,
+                      canary_threshold=BREAKER_THRESHOLD)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(HOST_THREADS) as pool:
+        pending = {
+            "bist": pool.submit(TCAMServer, compiled, device=dev,
+                                rng=np.random.default_rng(0),
+                                nonideal=stuck(HEALTH_P),
+                                config=ServeConfig(max_batch=256,
+                                                   engine="auto")),
+            "scan": [pool.submit(TCAMServer, compiled, device=dev,
+                                 config=cfg, rng=np.random.default_rng(seed),
+                                 nonideal=stuck(BREAKER_P))
+                     for seed in BREAKER_SEEDS],
+            "forest": [pool.submit(TCAMServer, forest, device=dev,
+                                   nonideal=stuck(FOREST_HEALTH_P),
+                                   rng=np.random.default_rng(0),
+                                   config=ServeConfig(max_batch=256,
+                                                      engine=engine))
+                       for engine in ("auto", "banked")],
+            "replicated": pool.submit(
+                ReplicatedServer, compiled, k=REPLICAS, device=dev,
+                rng=np.random.default_rng(0), nonideal=stuck(HEALTH_P),
+                config=ServeConfig(max_batch=256, background=False)),
+            "live": pool.submit(TCAMServer, compiled, device=dev,
+                                config=ServeConfig(max_batch=256)),
+            "candidate": pool.submit(fit_candidate),
+        }
+        ready = {k: [f.result() for f in v] if isinstance(v, list)
+                 else v.result() for k, v in pending.items()}
+    log(json.dumps({"health_setup": {
+        "phase_s": time.perf_counter() - t_phase,
+        "setup_s": time.perf_counter() - t0, "threads": HOST_THREADS}}))
+
+    # -- BIST and repair -----------------------------------------------------------
+    srv = ready["bist"]
+    actual, intent = srv.live_layout.cells, srv.live_intent
+    bist, t_bist = sync_time(srv.self_test)
+    changed = behavior_changed_rows(intent, actual, used)
+    check(np.array_equal(bist.detected, changed),
+          "BIST on the card flags exactly the behaviourally changed rows "
+          f"({bist.n_defective} flagged, {int(changed.sum())} changed)")
+    detected = bist.defective_rows
+    clean = np.flatnonzero(~bist.detected)
+    n_clean = BIST_REF_ROWS - min(len(detected), BIST_REF_ROWS * 3 // 4)
+    rows = np.concatenate([detected[: BIST_REF_ROWS - n_clean],
+                           clean[:: max(1, len(clean) // n_clean)][:n_clean]])
+    # the rows' grids, copied before repair rewrites the chip; the plain
+    # loop runs on them at the end of the phase
+    bist_rows = (actual[rows], intent[rows])
+    sub = run_bist(*bist_rows, used=used, n_rows=lay.n_rows, device=dev)
+    check(np.array_equal(sub.detected, bist.detected[rows]),
+          "BIST on the card of the sampled rows alone == of the whole chip")
+    report, t_repair = sync_time(lambda: srv.repair(bist))
+    summary = report.summary()
+    again = srv.self_test()
+    check(report.degraded or again.n_defective == 0,
+          "the re-test after a full repair is clean")
+    zero = match_launches()
+    res, wall = serve_timed(srv, Xq)
+    served_launches = match_launches() - zero
+    rlay = srv.live_layout
+    want = tcam_infer(rlay, xq, engine=srv.engine, device=dev)
+    check_served(res, want, "repaired chip")
+    on_spares = int(sum(r.survivor >= lay.n_rows for r in res))
+    remapped = [q for q, r in enumerate(live.survivors)
+                if int(r) in report.assignments]
+    follow = sum(res[q].survivor == report.assignments[int(live.survivors[q])]
+                 for q in remapped)
+    check(on_spares > 0, "served survivors land on remapped spare rows")
+    check(served_launches >= srv.metrics()["batches"] > 0,
+          "every served batch launched a match kernel")
+    log(json.dumps({"health_bist_repair": {
+        "phase_s": time.perf_counter() - t_phase,
+        "layout": list(lay.cells.shape), "p_sa": HEALTH_P,
+        "bist_ms": t_bist * 1e3, "defective_rows": bist.n_defective,
+        "defective_lut_rows": bist.summary()["defective_lut_rows"],
+        "probes_run": bist.probes_run,
+        "behavior_changed_rows": int(changed.sum()),
+        "coverage": bist.coverage(changed),
+        "repair_ms": t_repair * 1e3, "repair": summary,
+        "retest_defective": again.n_defective,
+        "served": {**serve_figures(srv, n, wall),
+                   "match_launches": served_launches,
+                   "accuracy_vs_tree": float(np.mean(
+                       [r.prediction for r in res] == golden[:n])),
+                   "survivors_on_spares": on_spares,
+                   "queries_on_remapped_rules": len(remapped),
+                   "of_them_on_their_spare": int(follow)}}}))
+    srv.close()
+
+    # -- the breaker's ladder ------------------------------------------------------
+    srv, firsts = None, []
+    for candidate in ready["scan"]:
+        if srv is None:
+            firsts.append(candidate.run_canary())
+            if firsts[-1] < cfg.canary_threshold:
+                srv = candidate
+                continue
+        candidate.close()
+    log(f"breaker: first canary by seed {firsts}")
+    seed = BREAKER_SEEDS[len(firsts) - 1]
+    check(srv is not None, f"a canary trips at p={BREAKER_P} for one of "
+          f"seeds {list(BREAKER_SEEDS)}")
+    batches = []
+    srv.fault_injection_hook = lambda X: batches.append(
+        (srv.engine, srv.breaker.state, srv.breaker.trips, match_launches()))
+    res, wall = serve_timed(srv, Xq)
+    srv.close()
+    end = match_launches()
+    health = srv.health()
+    marks = [b[3] for b in batches] + [end]
+    per_batch = [marks[i + 1] - marks[i] for i in range(len(batches))]
+    # the first batch that starts after the breaker tripped
+    trip = next((i for i, b in enumerate(batches) if b[2] > 0), len(batches))
+    check(health["breaker"]["trips"] >= 1 and trip < len(batches),
+          "the breaker tripped before the last batch")
+    check(all(b[0] != "ref" for b in batches) and health["engine"] != "ref"
+          and health["state"] != "fallback",
+          f"the breaker kept serving on the kernel (state {health['state']},"
+          f" engine {health['engine']})")
+    check(all(k > 0 for k in per_batch),
+          "every batch, before and after the trip, launched a match kernel")
+    # the kernel's canary on the grid it serves now == the plain version's
+    probe = srv._canary
+    plain = tcam_infer(srv.live_layout, probe.words[:, 1:used], engine="ref",
+                       device=dev)
+    canary_kernel = srv.run_canary()
+    canary_plain = probe.accuracy(plain.predictions)
+    check(canary_kernel == canary_plain,
+          f"canary on the kernel {canary_kernel} == on the plain version "
+          f"{canary_plain}")
+    log(json.dumps({"health_breaker": {
+        "phase_s": time.perf_counter() - t_phase,
+        "p_sa": BREAKER_P, "threshold": BREAKER_THRESHOLD, "seed": seed,
+        "first_canary": firsts[-1],
+        "state": health["state"], "engine": health["engine"],
+        "trips": health["breaker"]["trips"],
+        "recovery": health["breaker"]["recovery"],
+        "repair_attempts": health["repair_attempts"],
+        "last_repair": health["last_repair"],
+        "canary_after": canary_kernel,
+        "batches": len(batches),
+        "launches_through_trip": sum(per_batch[:trip]),
+        "launches_after_trip": sum(per_batch[trip:]),
+        "wall_s": wall, "requests_per_s": n / wall}}))
+
+    # -- row_utilization over the training inputs ------------------------------
+    xtr = encode_inputs(compiled.lut, Xtr)
+
+    def utilization():
+        first = first_survivors(lay, xtr, device=dev)
+        util = torch.bincount(first[first >= 0], minlength=lay.cells.shape[0])
+        return first.cpu().numpy(), util.cpu().numpy()
+
+    (first, util), t_util = sync_time(utilization)
+    check(np.array_equal(util, row_utilization(lay, xtr, device=dev)),
+          "row_utilization == the timed launch's first-survivor counts")
+    check(int(util.sum()) == len(xtr) and util[lay.n_rows:].sum() == 0,
+          "every training input has one first survivor, on a LUT row")
+    head = first[:UTIL_REF_INPUTS]
+    util_head = np.bincount(head[head >= 0], minlength=lay.cells.shape[0])
+    log(json.dumps({"health_row_utilization": {
+        "phase_s": time.perf_counter() - t_phase,
+        "inputs": len(xtr), "ms": t_util * 1e3,
+        "rows_used": int((util > 0).sum()), "max_hits": int(util.max())}}))
+
+    # -- forest: per-bank BIST and repair --------------------------------------
+    served = {}
+    for engine, fsrv in zip(("auto", "banked"), ready["forest"]):
+        bists, t_fb = sync_time(fsrv.self_test)
+        reports, t_fr = sync_time(lambda: fsrv.repair(bists))
+        before = tcam_match_banked_bits_cuda.launches
+        fres, wall = serve_timed(fsrv, Xq)
+        fh = fsrv.health()
+        served[engine] = fres
+        log(json.dumps({"health_forest": {
+            "phase_s": time.perf_counter() - t_phase,
+            "engine": fsrv.engine, "p_sa": FOREST_HEALTH_P,
+            "bist_ms": t_fb * 1e3, "repair_ms": t_fr * 1e3,
+            "banks_flagged": int(sum(b.n_defective > 0 for b in bists)),
+            "rows_flagged": int(sum(b.n_defective for b in bists)),
+            "rows_repaired": int(sum(r.rows_repaired for r in reports)),
+            "banks_enabled": fh["banks_enabled"],
+            "spares_free": fh["spares_free"],
+            "banked_launches": tcam_match_banked_bits_cuda.launches - before,
+            **serve_figures(fsrv, n, wall)}}))
+        check(fsrv.engine == ("mxu" if engine == "auto" else "banked"),
+              f"forest {engine} resolves by device")
+        check((tcam_match_banked_bits_cuda.launches > before)
+              == (engine == "auto"), f"forest {engine}: banked kernel launches")
+        fsrv.close()
+    check(sum(b.n_defective > 0 for b in bists) > 1,
+          "faults flag rows in several banks")
+    for f in ("prediction", "n_survivors", "active_evals", "energy_j"):
+        check([getattr(r, f) for r in served["auto"]]
+              == [getattr(r, f) for r in served["banked"]],
+              f"repaired forest on mxu == on banked: {f}")
+
+    # -- k-chip voting ---------------------------------------------------------------
+    zero = match_launches()
+    with ready["replicated"] as rs:
+        t0 = time.perf_counter()
+        voted = rs.serve(Xq)
+        wall = time.perf_counter() - t0
+        met = rs.metrics()
+    launches = match_launches() - zero
+    batches = [m["batches"] for m in met["replicas"]]
+    check(launches == sum(batches), "one match launch per replica batch")
+    log(json.dumps({"health_replicated": {
+        "phase_s": time.perf_counter() - t_phase,
+        "k": REPLICAS, "p_sa": HEALTH_P, "wall_s": wall,
+        "requests_per_s": n / wall,
+        "disagreement_rate": met["disagreement_rate"],
+        "accuracy_vs_tree": float(np.mean(
+            [v.prediction for v in voted] == golden[:n])),
+        "replicas": [{"engine": m["engine"], "batches": b,
+                      "launches": b} for m, b in zip(met["replicas"],
+                                                     batches)]}}))
+
+    # -- lifecycle ---------------------------------------------------------------------
+    cand, t_fit = ready["candidate"]
+    srv = ready["live"]
+    old_cells, old_bits = srv.live_intent, srv.live_layout.class_bits
+    plan, t_plan = sync_time(lambda: plan_delta(
+        old_cells, cand.layout.cells, old_class_bits=old_bits,
+        new_class_bits=cand.layout.class_bits))
+    wear = WearTracker()
+    wear.record(plan_full(np.zeros((0, 0), np.int8), old_cells,
+                          new_class_bits=old_bits))
+    wear.record(plan)
+    _, t_stage = sync_time(lambda: srv.stage(cand, mirror_fraction=0.5))
+    res_live, wall_shadow = serve_timed(srv, Xq)
+    check_served(res_live, live, "live model while a candidate is staged")
+    rep, t_promote = sync_time(lambda: srv.promote(min_shadow_batches=1,
+                                                   max_disagreement=1.0))
+    check(rep.promoted, f"promotion: {rep.reason}")
+    res_new, _ = serve_timed(srv, Xq)
+    check_served(res_new, tcam_infer(cand.layout, encode_inputs(cand.lut, Xq),
+                                     device=dev), "promoted candidate")
+    check(srv.rollback() == "reverted", "rollback reverts")
+    res_old, _ = serve_timed(srv, Xq)
+    check_served(res_old, live, "rolled-back model")
+    lifecycle = srv.metrics()["lifecycle"]
+    srv.close()
+    with tempfile.TemporaryDirectory() as root:
+        reg = ModelRegistry(root)
+        t0 = time.perf_counter()
+        v1 = reg.publish(compiled, "credit")
+        v2 = reg.publish(cand, "credit", parents=[v1.version_id])
+        back = [reg.load(v.version_id) for v in (v1, v2)]
+        t_reg = time.perf_counter() - t0
+    for v, model, b in zip((v1, v2), (compiled, cand), back):
+        check(content_hash(b) == v.content_hash
+              and np.array_equal(b.layout.cells, model.layout.cells),
+              f"registry round trip of {v.version_id}")
+    log(json.dumps({"health_lifecycle": {
+        "phase_s": time.perf_counter() - t_phase,
+        "candidate_fit_compile_s": t_fit,
+        "candidate_layout": list(cand.layout.cells.shape),
+        "plan_ms": t_plan * 1e3, "plan": plan.summary(),
+        "figures": plan.figures(),
+        "wear": wear.snapshot(), "stage_s": t_stage,
+        "shadow_requests_per_s": n / wall_shadow,
+        "promote_ms": t_promote * 1e3, "promotion": rep.summary(),
+        "lifecycle": lifecycle, "registry_s": t_reg,
+        "versions": [v1.version_id, v2.version_id]}}))
+
+    counts = read_counts()
+    log(f"phase 7 launches: {counts}")
+
+    # -- the plain versions, on the host, after every timed step ----------------
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+
+    def bist_ref(i):
+        a, b = (g[i:i + 1] for g in bist_rows)
+        return run_bist_ref(a, b, used=used, n_rows=lay.n_rows)
+
+    x_head = xtr[:UTIL_REF_INPUTS]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(HOST_THREADS) as pool:
+        util_jobs = [pool.submit(timed, row_utilization_ref, lay,
+                                 x_head[i:i + UTIL_REF_CHUNK])
+                     for i in range(0, len(x_head), UTIL_REF_CHUNK)]
+        bist_jobs = [pool.submit(timed, bist_ref, i) for i in range(len(rows))]
+        util_done = [j.result() for j in util_jobs]
+        bist_done = [j.result() for j in bist_jobs]
+    t_refs = time.perf_counter() - t0
+    want_util = sum(u for u, _ in util_done)
+    check(np.array_equal(util_head, want_util),
+          f"the timed row_utilization launch == the plain version on its "
+          f"first {len(x_head)} inputs")
+    ref_detected = np.array([r.detected[0] for r, _ in bist_done])
+    check(np.array_equal(sub.detected, ref_detected)
+          and sub.probes_run == sum(r.probes_run for r, _ in bist_done),
+          f"BIST on the card == the plain per-row loop on {len(rows)} rows "
+          f"({int(ref_detected.sum())} flagged)")
+    log(json.dumps({"health_plain_versions": {
+        "phase_s": time.perf_counter() - t_phase,
+        "threads": HOST_THREADS, "wall_s": t_refs,
+        "bist_rows": len(rows), "bist_flagged": int(ref_detected.sum()),
+        "bist_ms_per_row": sum(t for _, t in bist_done) / len(rows) * 1e3,
+        "util_inputs": len(x_head),
+        "util_ms_per_input": sum(t for _, t in util_done) / len(x_head) * 1e3
+    }}))
+    check(counts["tcam_match_bits_cuda"] > 0
+          and counts["tcam_match_packed_bits_cuda"] > 0
+          and counts["tcam_match_banked_bits_cuda"] > 0,
+          "the bitplane, packed and banked kernels each launched in phase 7")
+    log(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -817,9 +1272,12 @@ def main() -> int:
     del x, km
 
     # -- 6. forest ----------------------------------------------------------------
-    banked = forest_phase(dev, bw, rates)
+    banked, forest = forest_phase(dev, bw, rates)
 
-    # -- 7. result ---------------------------------------------------------------
+    # -- 7. chip health and lifecycle ---------------------------------------------
+    health_phase(dev, tree, Xtr, ytr, Xte, golden, ideal["auto"], forest)
+
+    # -- 8. result ---------------------------------------------------------------
     log(smi)
     log(json.dumps({"kernels": [bitplane, packed, banked]}))
     log(json.dumps({"ok": True, "device": {

@@ -25,8 +25,10 @@ from .energy import (
     f_max,
     forest_figures,
     max_cells_per_row,
+    reprogram_figures,
     t_cwd,
     t_opt,
+    write_energy,
 )
 from .lut import CELL_0, CELL_1, CELL_MM, CELL_X, TernaryLUT, bitplanes
 from .nonideal import (
@@ -50,7 +52,7 @@ __all__ = [
     "encode_inputs", "encode_table", "span_code", "unary_code",
     "DEFAULT_HW", "HardwareParams", "choose_tile_size", "dynamic_range",
     "f_max", "max_cells_per_row", "t_cwd", "t_opt", "bank_figures",
-    "forest_figures",
+    "forest_figures", "reprogram_figures", "write_energy",
     "CELL_0", "CELL_1", "CELL_MM", "CELL_X", "TernaryLUT", "bitplanes",
     "IDEAL", "NonIdealSpec", "SAFMask", "apply_saf", "apply_saf_mask",
     "noisy_inputs", "sample_saf", "DriftSpec",

@@ -21,7 +21,8 @@ import math
 
 __all__ = ["HardwareParams", "DEFAULT_HW", "dynamic_range", "max_cells_per_row",
            "t_opt", "t_cwd", "f_max", "choose_tile_size", "TABLE_IV",
-           "bank_figures", "forest_figures"]
+           "bank_figures", "forest_figures", "write_energy",
+           "reprogram_figures"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,3 +229,39 @@ def forest_figures(
     if all("energy_per_dec_j" in b for b in banks):
         agg["energy_per_dec_j"] = sum(b["energy_per_dec_j"] for b in banks)
     return {"banks": banks, "aggregate": agg}
+
+
+# ---------------------------------------------------------------------------
+# Programming (write) figures — the lifecycle subsystem's energy model
+# ---------------------------------------------------------------------------
+
+def write_energy(
+    n_set: int, n_reset: int, hw: HardwareParams = DEFAULT_HW
+) -> float:
+    """Modelled energy [J] of a programming pass: per-element pulse counts
+    times the calibrated SET/RESET pulse energies."""
+    return float(n_set) * hw.e_set + float(n_reset) * hw.e_reset
+
+
+def reprogram_figures(plan, hw: HardwareParams = DEFAULT_HW) -> dict:
+    """Energy / time / endurance figures for one write plan.
+
+    Duck-typed: ``plan`` needs ``kind``, ``n_cells_written``, ``n_set``,
+    ``n_reset``, ``class_set``, ``class_reset`` and ``rows_touched`` (a
+    ``lifecycle.WritePlan``).  Pulses are modelled as serialized
+    through one program driver (worst case): time = total pulses × t_prog.
+    """
+    n_set = int(plan.n_set) + int(plan.class_set)
+    n_reset = int(plan.n_reset) + int(plan.class_reset)
+    pulses = n_set + n_reset
+    return {
+        "kind": plan.kind,
+        "cells_written": int(plan.n_cells_written),
+        "rows_touched": int(plan.rows_touched),
+        "set_pulses": n_set,
+        "reset_pulses": n_reset,
+        "pulses": pulses,
+        "energy_j": write_energy(n_set, n_reset, hw),
+        "time_s": pulses * hw.t_prog,
+        "endurance_cycles_consumed": pulses,
+    }

@@ -9,7 +9,8 @@ kernel is queued on the current stream, and the host encodes group g+1
 while the card works.  The one synchronisation comes after every group is
 queued.  Engine 'ref' delegates to the pure-numpy oracle
 (``forest_infer_ref``); all engines produce bit-identical survivors and
-therefore bit-identical votes.
+therefore bit-identical votes.  'auto', the default, means 'mxu' on the card
+and 'banked' on the CPU.
 
 Each group's (G, B, R) match outputs are reduced per bank on the device —
 first survivor, survivor count, and the active evaluations over the bank's
@@ -181,20 +182,22 @@ class ForestExecutor:
         self,
         forest: CompiledForest,
         *,
-        engine: str = "banked",
+        engine: str = "auto",
         hw: HardwareParams = DEFAULT_HW,
         min_bucket: int = 8,
         plan: Optional[ForestPlan] = None,
         kmax: Optional[list] = None,   # per-group (G, R, D) overrides
         device: DeviceLike = None,
     ) -> None:
-        if engine not in FOREST_ENGINES:
+        if engine != "auto" and engine not in FOREST_ENGINES:
             raise ValueError(
                 f"unknown forest engine {engine!r}; "
-                f"expected one of {FOREST_ENGINES}"
+                f"expected 'auto' or one of {FOREST_ENGINES}"
             )
         self.device = resolve_device(device)
         self.forest = forest
+        if engine == "auto":
+            engine = "mxu" if self.device.type == "cuda" else "banked"
         self.engine = engine
         self.hw = hw
         self.min_bucket = min_bucket

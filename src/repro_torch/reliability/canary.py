@@ -1,4 +1,4 @@
-"""Golden-vector canary probes.
+"""Golden-vector canary probes and the serving circuit breaker.
 
 A canary is a tiny fixed query set with *known-good* answers, replayed
 periodically through the production compute path.  Golden vectors are
@@ -6,14 +6,25 @@ synthesized from the ideal layout (one matching word per LUT row, don't-care
 positions filled randomly) and labelled by evaluating the *ideal* chip — no
 dataset required at serving time.
 
-The port's server builds its canary at construction, because its rng draws
-are part of the serving contract (a server seeded like the JAX package's
-draws the same per-batch noise).  Replaying it periodically, with the
-circuit breaker that acts on it, belongs to the reliability slice.
+``CircuitBreaker`` tracks the chip-health state machine the server drives:
+
+    HEALTHY --canary below threshold--> DEGRADED
+    DEGRADED --drift scrub + refresh + canary re-vote ok--> REPAIRED
+               (the server's drift rung is not ported yet)
+    DEGRADED --BIST + spare-row repair + canary re-vote ok--> REPAIRED
+    DEGRADED/REPAIRED --repair insufficient, 'ref' engine canary ok--> FALLBACK
+    otherwise --> FAILED   (still serving, loudly degraded)
+    REPAIRED --routine canary re-pass--> HEALTHY   (re-enters steady state)
+
+The breaker never opens the request path — a degraded chip keeps answering
+(the paper's whole point is graceful accuracy degradation); the state is
+surfaced through ``TCAMServer.health()`` and the metrics snapshot so
+operators and the ReplicatedServer can react.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -21,7 +32,15 @@ from ..core.lut import CELL_X
 from ..core.synth import TCAMLayout
 from .bist import march_probes, row_match
 
-__all__ = ["CanaryProbe", "make_canary"]
+__all__ = ["BreakerState", "CanaryProbe", "CircuitBreaker", "make_canary"]
+
+
+class BreakerState:
+    HEALTHY = "healthy"
+    DEGRADED = "degraded"
+    REPAIRED = "repaired"
+    FALLBACK = "fallback"
+    FAILED = "failed"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,3 +91,59 @@ def make_canary(
         hit, layout.classes[first], 0
     ).astype(np.int32)
     return CanaryProbe(words=words, expected=expected)
+
+
+@dataclasses.dataclass
+class CircuitBreaker:
+    """Chip-health state machine fed by canary accuracies."""
+
+    threshold: float = 0.9
+    state: str = BreakerState.HEALTHY
+    trips: int = 0
+    last_accuracy: float = float("nan")
+    recovery: Optional[str] = None     # 'scrub' | 'repair' | 'fallback_ref'
+
+    def observe(self, accuracy: float) -> bool:
+        """Record a routine canary run; True iff the breaker trips (healthy
+        or recovered state and accuracy below threshold)."""
+        self.last_accuracy = accuracy
+        if accuracy >= self.threshold:
+            if self.state in (BreakerState.DEGRADED, BreakerState.FAILED,
+                              BreakerState.REPAIRED):
+                # DEGRADED/FAILED: chip spontaneously back above threshold;
+                # REPAIRED: a routine canary re-passed after recovery, so the
+                # chip re-enters steady state.  FALLBACK stays sticky — its
+                # canaries pass *on the fallback engine*, which says nothing
+                # about the primary path.
+                self.state = BreakerState.HEALTHY
+            return False
+        if self.state in (BreakerState.HEALTHY, BreakerState.REPAIRED,
+                          BreakerState.FALLBACK):
+            self.state = BreakerState.DEGRADED
+            self.trips += 1
+            return True
+        return self.state == BreakerState.DEGRADED
+
+    def recovered(self, how: str, accuracy: float) -> None:
+        """A recovery rung re-passed the canary: 'scrub' (drift refresh) and
+        'repair' (spare-row remap) restore full-fidelity serving (REPAIRED);
+        anything else is a degraded-but-serving fallback (FALLBACK)."""
+        self.last_accuracy = accuracy
+        self.recovery = how
+        self.state = (
+            BreakerState.REPAIRED if how in ("scrub", "repair")
+            else BreakerState.FALLBACK
+        )
+
+    def failed(self, accuracy: float) -> None:
+        self.last_accuracy = accuracy
+        self.state = BreakerState.FAILED
+
+    def snapshot(self) -> dict:
+        return {
+            "state": self.state,
+            "trips": self.trips,
+            "threshold": self.threshold,
+            "last_accuracy": self.last_accuracy,
+            "recovery": self.recovery,
+        }

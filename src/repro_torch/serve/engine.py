@@ -24,23 +24,44 @@ server's numpy ``rng`` in the JAX package's order: stuck faults, SA offsets,
 the golden canary vectors, then one σ_in draw per batch; so a port server
 and a JAX server seeded alike serve identical results.
 
-Serving protections: bounded queue with load shedding (``Rejected``),
-per-request queueing deadlines (``DeadlineExceeded``) and retry-with-backoff
-for transient compute failures (``ComputeFailed`` after the budget).  Every
-submitted Future resolves — with a result or a typed error.
+Reliability layer (``reliability``): the stuck-fault state is kept as a
+persistent per-element ``SAFMask``, so the server can *self-test*
+(march-style BIST, every row at once on the device), *repair* (remap
+defective rows onto write-verified spare rows), and *canary* itself (golden
+vectors replayed through the compute path).  Serving protections: bounded
+queue with load shedding (``Rejected``), per-request queueing deadlines
+(``DeadlineExceeded``), retry-with-backoff for transient compute failures
+(``ComputeFailed`` after the budget), and a periodic canary that trips a
+circuit breaker driving the degradation ladder degraded -> repair -> re-vote
+-> failed, on the engine it was serving (on the CPU, as in the JAX server,
+an engine fallback to 'ref' comes before failed).  Every submitted Future
+resolves — with a result or a typed error.
+
+Lifecycle (``lifecycle``): ``stage()`` loads a candidate model into a shadow
+slot with its own chip state and device operands, a fraction of live
+batches is mirrored to it, ``promote()`` evaluates the gates and swaps it in
+atomically, ``rollback()`` unstages it or reverts the last promotion.
+
+Device operands: the live model's per-engine operands (``_operands``) and
+the candidate's are built once per layout; a repair or a promotion that
+changes the served grid drops them with the build cache, so no batch
+matches against a stale grid on the card.
 
 Forest mode: constructed with a ``forest.CompiledForest`` the server
 shards the batch path across TCAM banks — per-group banked matches
-('banked' = PyTorch ops, the default for 'auto'; 'mxu' = the bitplane CUDA
-kernel with a bank grid axis; 'ref' = a per-bank loop over the oracle),
-pipelined across groups, each bank with its own stuck faults and SA
-offsets, and one ensemble vote per request.  ``disable_bank`` drops a bank
-out of the vote and its divisor.
+('mxu' = the bitplane CUDA kernel with a bank grid axis, what 'auto' picks
+on the card; 'banked' = PyTorch ops, what 'auto' picks on the CPU; 'ref' =
+a per-bank loop over the oracle), pipelined across groups, each bank with
+its own stuck faults and SA offsets, and one ensemble vote per request.
+Chip health runs bank by bank: BIST and spare-row repair per bank,
+survivors on remapped spare rows translated through a physical->LUT row
+map back to the right vote entries, and a bank whose repair stays degraded
+is disabled (drops out of the vote and the divisor).
 
-Not in this slice (they raise ``NotImplementedError``): the periodic canary
-and its circuit-breaker ladder, BIST and spare-row repair (single tree and
-forest), ``health``, drift and scrub, and shadow stage/promote/rollback.
-``ROADMAP.md`` lists them as the port's later slices.
+Not in this slice (they raise ``NotImplementedError``): drift and scrub
+(``advance_time``, ``scrub_now``, the breaker's scrub rung, the ``wear=``
+endurance ledger they debit).  ``ROADMAP.md``
+Queue A 1c lists them.
 
 Run ``background=True`` (default) for a worker thread + Future-based
 completion, or ``background=False`` for deterministic single-threaded tests
@@ -49,6 +70,7 @@ via ``pump()``/``drain()``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import threading
 import time
@@ -62,12 +84,15 @@ import torch
 from ..core.compiler import CompiledDT, FeatureMismatch
 from ..core.encode import encode_inputs
 from ..core.energy import DEFAULT_HW, HardwareParams, f_max, forest_figures
-from ..core.lut import CELL_X
-from ..core.nonideal import IDEAL, NonIdealSpec, apply_saf_mask, sample_saf
+from ..core.lut import CELL_1, CELL_X
+from ..core.nonideal import (IDEAL, NonIdealSpec, SAFMask, apply_saf_mask,
+                             sample_saf)
 from ..device import DeviceLike, resolve_device
 from ..kernels.ops import (MatchOperands, _finalize, prepare_match, run_match,
                            sa_kmax, select_engine)
-from ..reliability.canary import CanaryProbe, make_canary
+from ..reliability.bist import BistReport, run_bist
+from ..reliability.canary import CanaryProbe, CircuitBreaker, make_canary
+from ..reliability.repair import RepairReport, repair_layout
 from .batching import AdaptiveBatcher, BucketPolicy
 from .cache import CompileCache
 from .errors import ComputeFailed, DeadlineExceeded, Rejected
@@ -76,10 +101,9 @@ from .metrics import ServeMetrics
 if TYPE_CHECKING:
     from ..forest.compiler import CompiledForest
 
-__all__ = ["RequestResult", "ServeConfig", "TCAMServer"]
+__all__ = ["PromotionReport", "RequestResult", "ServeConfig", "TCAMServer"]
 
-_RELIABILITY_SLICE = ("ROADMAP.md Queue A, 'Reliability, drift and lifecycle "
-                      "on the torch server'")
+_DRIFT_SLICE = "ROADMAP.md Queue A 1c, 'Drift and scrub'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,9 +122,11 @@ class ServeConfig:
     request_timeout_s: Optional[float] = None  # per-request queue deadline
     max_retries: int = 0          # transient compute failure retry budget
     retry_backoff_s: float = 0.01      # first backoff; doubles per retry
-    # -- chip-health canary -------------------------------------------------
-    canary_every_batches: int = 0      # periodic canary: later slice; > 0 raises
-    canary_size: int = 32              # golden vectors built at construction
+    # -- chip-health canary / circuit breaker ------------------------------
+    canary_every_batches: int = 0      # 0 disables the periodic canary
+    canary_size: int = 32              # golden vectors per canary run
+    canary_threshold: float = 0.9      # trip below this canary accuracy
+    auto_repair: bool = True           # breaker ladder: BIST+repair first
     # -- build cache ----------------------------------------------------------
     compile_cache_size: Optional[int] = None  # LRU bound on built batch
                                               # fns (None = unbounded)
@@ -132,6 +158,51 @@ class _Request:
     deadline: Optional[float] = None   # absolute clock time; None = no limit
 
 
+@dataclasses.dataclass(frozen=True)
+class PromotionReport:
+    """Outcome of one ``TCAMServer.promote()`` gate evaluation."""
+
+    promoted: bool
+    reason: str                   # 'promoted' | 'insufficient_shadow'
+                                  # | 'disagreement' | 'canary'
+    staged: bool                  # candidate still staged after the call
+    shadow_batches: int
+    shadow_requests: int
+    shadow_disagreements: int
+    disagreement_rate: float
+    canary_accuracy: float        # NaN when the canary gate never ran
+
+    def summary(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class _CandidateState:
+    """Shadow slot: a fully-built chip state for the staged model.
+
+    Everything the live single-model path owns — faulted layout, programmed
+    intent, persistent SAF mask, SA offsets, resolved engine, its own device
+    operands and warm build cache, its golden canary — so promotion is a
+    pure attribute swap with no build or sampling work inside the lock."""
+
+    compiled: CompiledDT
+    lut: object
+    layout: object
+    intent: np.ndarray
+    saf_mask: Optional[SAFMask]
+    kmax: Optional[np.ndarray]
+    engine: str
+    operands: dict
+    cache: CompileCache
+    canary: Optional[CanaryProbe]
+    mirror_fraction: float
+    live_batches: int = 0         # live batches seen since staging
+    shadow_batches: int = 0       # of those, mirrored to the candidate
+    shadow_requests: int = 0
+    shadow_disagreements: int = 0
+    shadow_errors: int = 0        # mirror computes that raised (live unharmed)
+
+
 class TCAMServer:
     """Serve a stream of classification requests on a compiled DT2CAM model.
 
@@ -151,6 +222,7 @@ class TCAMServer:
         config: ServeConfig = ServeConfig(),
         rng: Optional[np.random.Generator] = None,
         clock: Callable[[], float] = time.perf_counter,
+        wear=None,
         device: DeviceLike = None,
     ) -> None:
         # multi-bank (forest) mode: a CompiledForest shards the serving path
@@ -163,12 +235,13 @@ class TCAMServer:
             )
         if nonideal.has_drift:
             raise NotImplementedError(
-                f"drift serving is not ported yet: {_RELIABILITY_SLICE}"
+                f"drift serving is not ported yet: {_DRIFT_SLICE}"
             )
-        if config.canary_every_batches > 0:
+        if wear is not None:
+            # only the scrub scheduler and the degradation health read the
+            # endurance ledger: both come with drift
             raise NotImplementedError(
-                "the periodic canary and circuit breaker are not ported "
-                f"yet: {_RELIABILITY_SLICE}"
+                f"TCAMServer(wear=) is not ported yet: {_DRIFT_SLICE}"
             )
         self.device = resolve_device(device)
         self._hw = hw
@@ -178,7 +251,8 @@ class TCAMServer:
         self._rng = rng or np.random.default_rng(0)
         self.metrics_store = ServeMetrics()
         # device operands per engine (single tree) or per "engine:g<i>"
-        # plan group (forest), shared by every bucket's batch function
+        # plan group (forest), shared by every bucket's batch function and
+        # dropped whenever the served grid changes
         self._operands: dict = {}
         if self._forest is not None:
             self._init_forest_state(nonideal)
@@ -188,17 +262,26 @@ class TCAMServer:
         self.policy = BucketPolicy(
             max_batch=config.max_batch, min_bucket=config.min_bucket
         )
-        self.cache = CompileCache(self._build, self._layout_id(),
-                                  maxsize=config.compile_cache_size)
-        self._model_lock = threading.RLock()
+        self.cache = self._make_cache()
 
-        # the canary is drawn here (its rng draws are part of the serving
-        # contract); running it periodically is a later slice.  Forest mode
-        # has no single golden layout and draws none, as in the JAX package
+        # -- lifecycle: shadow slot + atomic model swap --------------------
+        # every batch/canary runs its whole compute under this lock, so a
+        # promotion either lands before a batch (served by the new model)
+        # or after it (served by the old one) — never mid-flight
+        self._model_lock = threading.RLock()
+        self._candidate: Optional[_CandidateState] = None
+        self._prev: Optional[dict] = None   # stashed live state for rollback
+
+        # -- chip-health machinery ----------------------------------------
+        self.breaker = CircuitBreaker(threshold=config.canary_threshold)
         self._canary: Optional[CanaryProbe] = None
         n_canary = min(config.canary_size, config.max_batch)
         if n_canary > 0 and self._forest is None:
+            # forest mode has no single golden layout: bank health is
+            # covered by per-bank BIST/repair instead of the canary
             self._canary = make_canary(compiled.layout, n_canary, self._rng)
+        self._batches_since_canary = 0
+        self._repair_reports: list[RepairReport] = []
         # test/chaos seam: called with the batch's feature matrix right
         # before kernel dispatch; raising simulates a transient device fault
         self.fault_injection_hook: Optional[Callable[[np.ndarray], None]] = None
@@ -226,11 +309,14 @@ class TCAMServer:
         self._n_features = compiled.tree.n_features
         layout = compiled.layout
         self._intent = np.array(layout.cells, copy=True)  # programmed content
+        # the chip's persistent stuck-element state, kept so repair can
+        # write new row content through the same stuck cells
+        self._saf_mask: Optional[SAFMask] = None
         if nonideal.has_saf:
-            mask = sample_saf(
+            self._saf_mask = sample_saf(
                 self._intent.shape, nonideal.p_sa0, nonideal.p_sa1, self._rng
             )
-            faulted = apply_saf_mask(self._intent, mask)
+            faulted = apply_saf_mask(self._intent, self._saf_mask)
             # padding columns beyond decoder+LUT width are OFF-OFF (masked,
             # physically disconnected) — stuck elements there cannot reach
             # the match line, so the served grid keeps them don't-care
@@ -256,6 +342,7 @@ class TCAMServer:
         n = forest.n_banks
         self._f_intent = [np.array(b.layout.cells, copy=True)
                           for b in forest.banks]
+        self._f_masks: list[Optional[SAFMask]] = [None] * n
         self._f_layouts = []
         for i, bank in enumerate(forest.banks):
             lay = bank.layout
@@ -264,6 +351,7 @@ class TCAMServer:
                     self._f_intent[i].shape,
                     nonideal.p_sa0, nonideal.p_sa1, self._rng,
                 )
+                self._f_masks[i] = mask
                 faulted = apply_saf_mask(self._f_intent[i], mask)
                 faulted[:, 1 + lay.width:] = CELL_X
                 lay = dataclasses.replace(lay, cells=faulted)
@@ -277,8 +365,8 @@ class TCAMServer:
                 )
                 self._f_kmax_banks[i] = sa_kmax(lay, offsets, self._hw)
         self._f_enabled = np.ones(n, dtype=bool)
-        # physical row -> LUT (vote-table) row; spares start unassigned (the
-        # repair that remaps rules onto them is the reliability slice)
+        # physical row -> LUT (vote-table) row; spares start unassigned and
+        # inherit a LUT row when repair remaps a defective rule onto them
         self._f_row_map = []
         for lay in self._f_layouts:
             rm = np.full(lay.cells.shape[0], -1, dtype=np.int32)
@@ -303,18 +391,26 @@ class TCAMServer:
             self._f_group_kmax.append(km)
 
     # -- engine & build machinery -------------------------------------------
-    def _layout_id(self) -> str:
-        if self._forest is not None:
+    def _layout_id(self, layout=None) -> str:
+        if layout is None and self._forest is not None:
             return "forest-" + self._f_plan.plan_id
-        lay = self._layout
+        lay = self._layout if layout is None else layout
         return hashlib.sha1(
             lay.cells.tobytes()
             + lay.classes.tobytes()
             + bytes([lay.s % 251])
         ).hexdigest()[:12]
 
-    def _resolve_engine(self, requested: str) -> str:
-        lay = self._layout
+    def _make_cache(self, builder=None, layout_id: Optional[str] = None
+                    ) -> CompileCache:
+        return CompileCache(
+            builder if builder is not None else self._build,
+            layout_id if layout_id is not None else self._layout_id(),
+            maxsize=self._config.compile_cache_size,
+        )
+
+    def _resolve_engine(self, requested: str, layout=None) -> str:
+        lay = self._layout if layout is None else layout
         try:
             return select_engine(lay.cells, lay.s, requested)
         except ValueError as e:
@@ -331,37 +427,28 @@ class TCAMServer:
             return "mxu"
 
     def _resolve_forest_engine(self, requested: str) -> str:
-        """Forest engines: 'banked' (PyTorch ops), 'mxu' (the CUDA kernel
-        with a bank grid axis), 'ref' (oracle).  'auto' means 'banked';
-        'packed' is unrepresentable for stacked banks and falls back with a
-        warning."""
+        """Forest engines: 'mxu' (the CUDA kernel with a bank grid axis),
+        'banked' (PyTorch ops), 'ref' (oracle).  'auto' means 'mxu' on the
+        card and 'banked' on the CPU; 'packed' is unrepresentable for
+        stacked banks and falls back to the same with a warning."""
+        by_device = "mxu" if self.device.type == "cuda" else "banked"
         if requested == "auto":
-            return "banked"
+            return by_device
         if requested in ("banked", "mxu", "ref"):
             return requested
         if requested == "packed":
             warnings.warn(
                 "engine 'packed' is not available in forest mode; "
-                "falling back to 'banked'",
+                f"falling back to {by_device!r}",
                 RuntimeWarning,
                 stacklevel=3,
             )
             self.metrics_store.on_fallback()
-            return "banked"
+            return by_device
         raise ValueError(
             f"unknown forest engine {requested!r}; expected 'auto', "
             "'banked', 'mxu' or 'ref'"
         )
-
-    def _match_operands(self, engine: str) -> MatchOperands:
-        """The live layout's device operands for one engine, moved to the
-        card once and shared by every bucket's batch function."""
-        ops = self._operands.get(engine)
-        if ops is None:
-            ops = prepare_match(self._layout.cells, self._layout.s, self._kmax,
-                                engine=engine, device=self.device)
-            self._operands[engine] = ops
-        return ops
 
     def _build(self, bucket: int, engine: str):
         """One batch function per (bucket, engine): (bucket, W) padded
@@ -370,11 +457,23 @@ class TCAMServer:
         per plan group instead."""
         if self._forest is not None:
             return self._build_forest(bucket, engine)
-        ops = self._match_operands(engine)
-        lay = self._layout
-        classes = torch.from_numpy(lay.classes).to(self.device, torch.int32)
-        xbuf = torch.empty((bucket, lay.n_cwd * lay.s), dtype=torch.uint8,
-                           device=self.device)
+        return self._build_for(self._layout, self._kmax, self._operands,
+                               bucket, engine)
+
+    def _build_for(self, layout, kmax, operands: dict, bucket: int,
+                   engine: str):
+        """Single-model batch function for an explicit chip state — shared
+        by the live path and the staged candidate's own build cache.  The
+        layout's device operands for ``engine`` go to the card once, kept
+        in ``operands`` (the chip state's own dict) for every bucket."""
+        ops: Optional[MatchOperands] = operands.get(engine)
+        if ops is None:
+            ops = prepare_match(layout.cells, layout.s, kmax, engine=engine,
+                                device=self.device)
+            operands[engine] = ops
+        classes = torch.from_numpy(layout.classes).to(self.device, torch.int32)
+        xbuf = torch.empty((bucket, layout.n_cwd * layout.s),
+                           dtype=torch.uint8, device=self.device)
 
         def run(xpad: np.ndarray):
             xbuf.copy_(torch.from_numpy(xpad))
@@ -403,15 +502,14 @@ class TCAMServer:
         run it once (the first run loads the CUDA kernel), so no request
         pays that cost; returns #builds."""
         before = self.cache.misses
+        if self._forest is None:
+            self._warm(self.cache, self.engine,
+                       self._layout.n_cwd * self._layout.s)
+            return self.cache.misses - before
+        from ..forest.executor import run_groups
         for b in self.policy.buckets:
-            fn = self.cache.get(b, self.engine)
-            if self._forest is not None:
-                from ..forest.executor import run_groups
-                run_groups(fn, np.zeros((b, self._n_features)),
-                           self._forest.n_banks)
-                continue
-            w = self._layout.n_cwd * self._layout.s
-            fn(np.zeros((b, w), np.uint8))
+            run_groups(self.cache.get(b, self.engine),
+                       np.zeros((b, self._n_features)), self._forest.n_banks)
         self._sync()
         return self.cache.misses - before
 
@@ -582,6 +680,7 @@ class TCAMServer:
                 if self._thread is None:  # synchronous mode: surface to caller
                     raise err
                 break
+        self._maybe_canary()
 
     def _process_inner_single(self, batch: list, deadline_flush: bool) -> None:
         t_form = self._clock()
@@ -606,6 +705,12 @@ class TCAMServer:
         compute_s = self._clock() - t_form
 
         preds, survivors, nsurv, active = (o[:n].cpu().numpy() for o in out)
+        # shadow deployment: mirror this (post-noise) batch to the staged
+        # candidate before resolving futures — a candidate-side failure must
+        # not fail, retry, or double-resolve the live batch
+        cand = self._candidate
+        if cand is not None and self._mirror_due(cand):
+            self._shadow_mirror(cand, X, bucket, preds)
         active = active.astype(np.int64)
         energy = active.astype(np.float64) * self._hw.e_row + self._hw.e_mem
 
@@ -716,38 +821,462 @@ class TCAMServer:
             raise RuntimeError("cannot disable the last voting bank")
         self._f_enabled = mask
 
-    # -- later slices -------------------------------------------------------
-    def _not_ported(self, what: str):
-        raise NotImplementedError(
-            f"TCAMServer.{what} is not ported yet: {_RELIABILITY_SLICE}"
+    # -- lifecycle: shadow deployment, promotion, rollback ------------------
+    _SWAP_ATTRS = ("_lut", "_intent", "_saf_mask", "_layout", "_kmax",
+                   "engine", "_operands", "cache", "_canary")
+
+    def _snapshot_model(self) -> dict:
+        return {a: getattr(self, a) for a in self._SWAP_ATTRS}
+
+    def _restore_model(self, state: dict) -> None:
+        for a, v in state.items():
+            setattr(self, a, v)
+
+    @property
+    def staged(self) -> bool:
+        """True while a candidate model occupies the shadow slot."""
+        return self._candidate is not None
+
+    @property
+    def live_intent(self) -> np.ndarray:
+        """The cell content currently programmed into the chip (single-model
+        mode) — the 'old' grid a lifecycle delta plan diffs against."""
+        if self._forest is not None:
+            raise RuntimeError(
+                "live_intent is single-model only; forest intents are "
+                "per-bank (see plan_forest_delta)"
+            )
+        return self._intent
+
+    @property
+    def live_layout(self):
+        """The served (possibly faulted/repaired) layout, single-model mode."""
+        if self._forest is not None:
+            raise RuntimeError("live_layout is single-model only")
+        return self._layout
+
+    def _warm(self, cache: CompileCache, engine: str, width: int) -> None:
+        """Build every bucket's batch function of ``cache`` and run it once."""
+        for b in self.policy.buckets:
+            cache.get(b, engine)(np.zeros((b, width), np.uint8))
+        self._sync()
+
+    def stage(self, candidate: CompiledDT, *,
+              mirror_fraction: float = 0.25, warm: bool = True) -> None:
+        """Load a candidate model into the shadow slot.
+
+        The candidate gets its own complete chip state on the same silicon:
+        the live chip's persistent SAF mask is reused when the candidate grid
+        matches its shape (a delta-reprogrammed array keeps its stuck
+        elements), a fresh mask is sampled when the grid was resized.  Its
+        device operands are built here, once, and kept apart from the live
+        model's.  From then on ``mirror_fraction`` of live batches are
+        re-served through the candidate's compute path and compared
+        prediction-for-prediction; ``promote()`` evaluates the gates and
+        performs the atomic swap.
+
+        ``warm=True`` builds every bucket shape for the candidate (and loads
+        its kernel) so promotion introduces no pause on the serving path.
+        """
+        if self._forest is not None or hasattr(candidate, "banks"):
+            raise NotImplementedError(
+                "shadow staging is single-model only; migrate forests "
+                "bank-by-bank via lifecycle.plan_forest_delta"
+            )
+        if not 0.0 < mirror_fraction <= 1.0:
+            raise ValueError(
+                f"mirror_fraction must be in (0, 1], got {mirror_fraction}"
+            )
+        if candidate.tree.n_features != self._n_features:
+            raise FeatureMismatch(
+                f"candidate expects {candidate.tree.n_features} features but "
+                f"the live model serves {self._n_features}"
+            )
+        lay = candidate.layout
+        intent = np.array(lay.cells, copy=True)
+        mask: Optional[SAFMask] = None
+        if self._spec.has_saf:
+            if (self._saf_mask is not None
+                    and self._saf_mask.shape == intent.shape):
+                mask = self._saf_mask        # same physical array
+            else:
+                mask = sample_saf(
+                    intent.shape, self._spec.p_sa0, self._spec.p_sa1,
+                    self._rng,
+                )
+            faulted = apply_saf_mask(intent, mask)
+            faulted[:, 1 + lay.width:] = CELL_X
+            lay = dataclasses.replace(lay, cells=faulted)
+        kmax: Optional[np.ndarray] = None
+        if self._spec.sa_sigma > 0:
+            offsets = self._rng.normal(
+                0.0, self._spec.sa_sigma,
+                size=(lay.cells.shape[0], lay.n_cwd),
+            )
+            kmax = sa_kmax(lay, offsets, self._hw)
+        engine = self._resolve_engine(self._config.engine, lay)
+        operands: dict = {}
+        cache = self._make_cache(
+            functools.partial(self._build_for, lay, kmax, operands),
+            self._layout_id(lay),
+        )
+        n_canary = min(self._config.canary_size, self._config.max_batch)
+        canary = (make_canary(candidate.layout, n_canary, self._rng)
+                  if n_canary > 0 else None)
+        cand = _CandidateState(
+            compiled=candidate, lut=candidate.lut, layout=lay, intent=intent,
+            saf_mask=mask, kmax=kmax, engine=engine, operands=operands,
+            cache=cache, canary=canary,
+            mirror_fraction=float(mirror_fraction),
+        )
+        if warm:
+            self._warm(cache, engine, lay.n_cwd * lay.s)
+        with self._model_lock:
+            if self._candidate is not None:
+                raise RuntimeError(
+                    "a candidate is already staged; promote() or rollback() "
+                    "it first"
+                )
+            self._candidate = cand
+        self.metrics_store.on_stage()
+
+    def _mirror_due(self, cand: _CandidateState) -> bool:
+        """Deterministic traffic mirroring: batch i is mirrored whenever the
+        running count crosses the next multiple of 1/fraction — exactly
+        ``mirror_fraction`` of live batches, no RNG involved."""
+        cand.live_batches += 1
+        f = cand.mirror_fraction
+        return int(cand.live_batches * f) > int((cand.live_batches - 1) * f)
+
+    def _candidate_preds(self, cand: _CandidateState, xpad: np.ndarray,
+                         n: int) -> np.ndarray:
+        """Padded search words through the candidate's compute path."""
+        fn = cand.cache.get(xpad.shape[0], cand.engine)
+        return fn(xpad)[0][:n].cpu().numpy()
+
+    def _shadow_mirror(self, cand: _CandidateState, X: np.ndarray,
+                       bucket: int, live_preds: np.ndarray) -> None:
+        n = X.shape[0]
+        try:
+            xbits = encode_inputs(cand.lut, X)
+            xpad = cand.layout.pad_inputs(xbits)
+            if bucket > n:
+                xpad = np.pad(xpad, ((0, bucket - n), (0, 0)))
+            preds = self._candidate_preds(cand, xpad, n)
+        except Exception:
+            cand.shadow_errors += 1
+            return
+        disagreements = int((preds != live_preds).sum())
+        cand.shadow_batches += 1
+        cand.shadow_requests += n
+        cand.shadow_disagreements += disagreements
+        self.metrics_store.on_shadow(n, disagreements)
+
+    def _canary_words(self, canary: CanaryProbe) -> np.ndarray:
+        """The canary's words zero-padded to their batch bucket."""
+        n = len(canary)
+        xpad = np.zeros((self.policy.bucket_for(n), canary.words.shape[1]),
+                        np.uint8)
+        xpad[:n] = canary.words
+        return xpad
+
+    def _run_candidate_canary(self, cand: _CandidateState) -> float:
+        """Candidate golden vectors through the candidate compute path."""
+        if cand.canary is None:
+            return float("nan")
+        preds = self._candidate_preds(cand, self._canary_words(cand.canary),
+                                      len(cand.canary))
+        return cand.canary.accuracy(preds)
+
+    def promote(self, *, min_shadow_batches: int = 1,
+                max_disagreement: float = 0.0) -> PromotionReport:
+        """Evaluate the promotion gates; on success atomically swap the
+        candidate into the live slot (the previous model, device operands
+        included, is stashed for ``rollback()``).
+
+        Gates, in order:
+
+        1. shadow exposure — fewer than ``min_shadow_batches`` mirrored
+           batches leaves the candidate *staged* (not an error: it simply
+           has not seen enough traffic yet);
+        2. disagreement — candidate-vs-live prediction drift above
+           ``max_disagreement`` unstages the candidate (a retrained model
+           legitimately disagrees; the operator sets the tolerance);
+        3. candidate canary — the candidate's own golden vectors through its
+           compute path must reach ``canary_threshold`` accuracy, else the
+           candidate is unstaged (its chip state is unhealthy).
+
+        The swap happens under the model lock: in-flight batches finish on
+        the old model, later batches ride the new one, every Future resolves.
+        """
+        with self._model_lock:
+            cand = self._candidate
+            if cand is None:
+                raise RuntimeError("no candidate staged; call stage() first")
+            rate = (cand.shadow_disagreements / cand.shadow_requests
+                    if cand.shadow_requests else 0.0)
+
+            def report(promoted: bool, reason: str, staged: bool,
+                       acc: float = float("nan")) -> PromotionReport:
+                return PromotionReport(
+                    promoted=promoted, reason=reason, staged=staged,
+                    shadow_batches=cand.shadow_batches,
+                    shadow_requests=cand.shadow_requests,
+                    shadow_disagreements=cand.shadow_disagreements,
+                    disagreement_rate=rate, canary_accuracy=acc,
+                )
+
+            if cand.shadow_batches < min_shadow_batches:
+                return report(False, "insufficient_shadow", True)
+            if rate > max_disagreement:
+                self._candidate = None
+                self.metrics_store.on_promotion(False)
+                return report(False, "disagreement", False)
+            acc = self._run_candidate_canary(cand)
+            if cand.canary is not None and \
+                    acc < self._config.canary_threshold:
+                self._candidate = None
+                self.metrics_store.on_promotion(False)
+                return report(False, "canary", False, acc)
+
+            self._prev = self._snapshot_model()
+            self._restore_model({
+                "_lut": cand.lut, "_intent": cand.intent,
+                "_saf_mask": cand.saf_mask, "_layout": cand.layout,
+                "_kmax": cand.kmax, "engine": cand.engine,
+                "_operands": cand.operands, "cache": cand.cache,
+                "_canary": cand.canary,
+            })
+            self._candidate = None
+            self.metrics_store.on_promotion(True)
+            if cand.canary is not None:
+                self.metrics_store.on_canary(
+                    acc >= self._config.canary_threshold, acc
+                )
+                self.breaker.observe(acc)
+            return report(True, "promoted", False, acc)
+
+    def rollback(self) -> str:
+        """Back out of the lifecycle: a staged candidate is unstaged
+        (returns 'unstaged'); otherwise the model stashed by the last
+        promotion, with its device operands, is swapped back in (returns
+        'reverted')."""
+        with self._model_lock:
+            if self._candidate is not None:
+                self._candidate = None
+                self.metrics_store.on_rollback()
+                return "unstaged"
+            if self._prev is not None:
+                self._restore_model(self._prev)
+                self._prev = None
+                self.metrics_store.on_rollback()
+                return "reverted"
+            raise RuntimeError(
+                "nothing to roll back: no candidate staged and no previous "
+                "model stashed"
+            )
+
+    # -- chip health: BIST, repair, canary, breaker ------------------------
+    def self_test(self):
+        """March-style BIST on the device: probe every physical row of the
+        (possibly faulty) array against its programmed intent; per-row
+        defect map.  Forest mode returns one ``BistReport`` per bank."""
+        if self._forest is not None:
+            return [
+                run_bist(lay.cells, intent, used=1 + lay.width,
+                         n_rows=lay.n_rows, device=self.device)
+                for lay, intent in zip(self._f_layouts, self._f_intent)
+            ]
+        return run_bist(
+            self._layout.cells, self._intent,
+            used=1 + self._layout.width, n_rows=self._layout.n_rows,
+            device=self.device,
         )
 
+    def repair(
+        self,
+        defects: Optional[BistReport] = None,
+        priority: Optional[np.ndarray] = None,
+    ):
+        """Spare-row repair: remap BIST-flagged rows onto write-verified
+        spares, drop the device operands and the build cache, and report
+        graceful degradation (``report.degraded`` when spares ran out or
+        ghosts remain).
+
+        Forest mode repairs bank by bank (``defects`` is the per-bank
+        ``self_test()`` list) and returns one ``RepairReport`` per repaired
+        bank; a bank whose repair stays degraded is *disabled* — it drops
+        out of the ensemble vote instead of poisoning it."""
+        if self._forest is not None:
+            return self._repair_forest(defects)
+        if self._saf_mask is None:
+            raise RuntimeError(
+                "repair requires a chip with sampled stuck-at faults "
+                "(NonIdealSpec.has_saf)"
+            )
+        if defects is None:
+            defects = self.self_test()
+        new_layout, new_intent, report = repair_layout(
+            self._layout, self._intent, self._saf_mask,
+            defects.defective_rows, priority=priority,
+        )
+        self._layout, self._intent = new_layout, new_intent
+        self._repair_reports.append(report)
+        self.metrics_store.on_repair(report.rows_repaired)
+        self._rebuild_compute()
+        return report
+
+    def _repair_forest(self, defects) -> list:
+        if not any(m is not None for m in self._f_masks):
+            raise RuntimeError(
+                "repair requires a chip with sampled stuck-at faults "
+                "(NonIdealSpec.has_saf)"
+            )
+        if defects is None:
+            defects = self.self_test()
+        reports = []
+        for i, bist in enumerate(defects):
+            if bist.defective_rows.size == 0 or self._f_masks[i] is None:
+                continue
+            new_layout, new_intent, report = repair_layout(
+                self._f_layouts[i], self._f_intent[i], self._f_masks[i],
+                bist.defective_rows,
+            )
+            self._f_layouts[i] = new_layout
+            self._f_intent[i] = new_intent
+            # spare rows inherit the LUT row they now carry, so post-repair
+            # survivors (physical spare indices) resolve in vote-table space
+            rm = self._f_row_map[i]
+            for orig, spare in report.assignments.items():
+                rm[int(spare)] = rm[int(orig)]
+            reports.append(report)
+            self.metrics_store.on_repair(report.rows_repaired)
+            if report.degraded:
+                self._f_enabled[i] = False
+        self._repair_reports.extend(reports)
+        self._rebuild_compute()
+        return reports
+
+    def _rebuild_compute(self) -> None:
+        """After the served grid changed (repair): re-resolve engine
+        legality (repair writes can add/remove CELL_MM), drop the device
+        operands built from the old grid, and re-key the build cache."""
+        if self._forest is not None:
+            if self.engine != "ref":
+                self.engine = self._resolve_forest_engine(self._config.engine)
+            self._rebuild_plan()
+        elif self.engine != "ref":
+            self.engine = self._resolve_engine(self._config.engine)
+        self._operands = {}
+        self.cache = self._make_cache()
+
     def run_canary(self) -> float:
-        self._not_ported("run_canary")
+        """Replay the golden vectors through the live compute path; returns
+        canary accuracy (and records it in the metrics)."""
+        with self._model_lock:
+            if self._canary is None:
+                raise RuntimeError("canary disabled (canary_size <= 0)")
+            xpad = self._canary_words(self._canary)
+            out = self.cache.get(xpad.shape[0], self.engine)(xpad)
+            preds = out[0][: len(self._canary)].cpu().numpy()
+            acc = self._canary.accuracy(preds)
+        self.metrics_store.on_canary(
+            acc >= self._config.canary_threshold, acc
+        )
+        return acc
 
-    def self_test(self):
-        self._not_ported("self_test")
+    def _maybe_canary(self) -> None:
+        if self._config.canary_every_batches <= 0 or self._canary is None:
+            return
+        self._batches_since_canary += 1
+        if self._batches_since_canary < self._config.canary_every_batches:
+            return
+        self._batches_since_canary = 0
+        acc = self.run_canary()
+        if self.breaker.observe(acc):
+            self.metrics_store.on_trip()
+            self._recover()
 
-    def repair(self, *args, **kwargs):
-        self._not_ported("repair")
+    def _recover(self) -> None:
+        """Degradation ladder: repair the chip, re-voting the canary; if
+        still failing, mark FAILED (the server keeps answering on the same
+        engine — degradation stays graceful).  The drift slice puts a scrub
+        rung before repair (ROADMAP Queue A 1c).
+
+        On the CPU the JAX server's last rung stays: fall back to the 'ref'
+        engine before FAILED, shown by ``health()``.  On the card there is
+        no such rung: 'ref' matches the same faulted grid on the host, so it
+        could restore the canary only where a kernel disagrees with its
+        plain version, and it would move serving off the card for good."""
+        thr = self._config.canary_threshold
+        if self._config.auto_repair and self._saf_mask is not None:
+            self.repair()
+            acc = self.run_canary()
+            if acc >= thr:
+                self.breaker.recovered("repair", acc)
+                return
+        if self.device.type == "cpu" and self.engine != "ref":
+            self.engine = "ref"
+            self.cache = self._make_cache()
+            acc = self.run_canary()
+            if acc >= thr:
+                self.breaker.recovered("fallback_ref", acc)
+                return
+        self.breaker.failed(self.breaker.last_accuracy)
 
     def health(self) -> dict:
-        self._not_ported("health")
+        """Chip-health snapshot: breaker state, canary, spares, repairs."""
+        if self._forest is not None:
+            spares_total = sum(l.n_spares for l in self._f_layouts)
+            spares_free = sum(
+                int((intent[lay.spare_row_indices, 0] == CELL_1).sum())
+                for lay, intent in zip(self._f_layouts, self._f_intent)
+                if lay.n_spares
+            )
+            return {
+                "state": self.breaker.state,
+                "engine": self.engine,
+                "breaker": self.breaker.snapshot(),
+                "mode": "forest",
+                "n_banks": self._forest.n_banks,
+                "banks_enabled": int(self._f_enabled.sum()),
+                "spares_total": spares_total,
+                "spares_free": spares_free,
+                "repair_attempts": len(self._repair_reports),
+                "last_repair": (
+                    self._repair_reports[-1].summary()
+                    if self._repair_reports else None
+                ),
+            }
+        spares_free = int(
+            (self._intent[self._layout.spare_row_indices, 0] == CELL_1).sum()
+        ) if self._layout.n_spares else 0
+        return {
+            "state": self.breaker.state,
+            "engine": self.engine,
+            "breaker": self.breaker.snapshot(),
+            "candidate_staged": self._candidate is not None,
+            "spares_total": self._layout.n_spares,
+            "spares_free": spares_free,
+            "repair_attempts": len(self._repair_reports),
+            "last_repair": (
+                self._repair_reports[-1].summary()
+                if self._repair_reports else None
+            ),
+            "degradation": None,      # drift and scrub: ROADMAP Queue A 1c
+        }
+
+    # -- drift and scrub: a later slice -------------------------------------
+    def _not_ported(self, what: str):
+        raise NotImplementedError(
+            f"TCAMServer.{what} is not ported yet: {_DRIFT_SLICE}"
+        )
 
     def advance_time(self, dt: float) -> float:
         self._not_ported("advance_time")
 
     def scrub_now(self, *, force: bool = False):
         self._not_ported("scrub_now")
-
-    def stage(self, candidate: CompiledDT, **kwargs) -> None:
-        self._not_ported("stage")
-
-    def promote(self, **kwargs):
-        self._not_ported("promote")
-
-    def rollback(self) -> str:
-        self._not_ported("rollback")
 
     # -- convenience & lifecycle -------------------------------------------
     def serve(self, X: np.ndarray) -> list[RequestResult]:
@@ -759,7 +1288,7 @@ class TCAMServer:
 
     def metrics(self) -> dict:
         """JSON-ready snapshot: serving counters/latency + build cache +
-        modelled ReCAM hardware figures of merit."""
+        chip health + modelled ReCAM hardware figures of merit."""
         if self._forest is not None:
             figs = forest_figures(self._f_layouts, self._hw)
             agg = figs["aggregate"]
@@ -768,6 +1297,7 @@ class TCAMServer:
                 device=str(self.device),
                 buckets=list(self.policy.buckets),
                 build_cache=self.cache.stats(),
+                health=self.health(),
                 # aggregate = raw per-bank pipelined rates summed; ensemble =
                 # complete forest decisions (all banks' votes needed)
                 modelled_mdecs_pipe=agg["decs_pipe"] / 1e6,
@@ -789,6 +1319,7 @@ class TCAMServer:
             device=str(self.device),
             buckets=list(self.policy.buckets),
             build_cache=self.cache.stats(),
+            health=self.health(),
             modelled_mdecs_seq=fm / lay.n_cwd / 1e6,
             modelled_mdecs_pipe=fm / hw.pipeline_ii_cycles / 1e6,
             layout={"rows": int(lay.cells.shape[0]),

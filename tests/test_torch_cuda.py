@@ -540,3 +540,250 @@ def test_row_major_packed_entry_equals_prepacked_entry(cuda, rows, width, s,
     assert tk.tcam_match_packed_bits_cuda.launches == before
     for g, w in zip(got, tk.tcam_match_packed_bits_cuda(x, vc, kt, s=s)):
         assert torch.equal(g, w)
+
+
+# --------------------------------------------------------------------------
+# chip health and lifecycle on the card
+# --------------------------------------------------------------------------
+def _fault(cells, p, seed):
+    from repro_torch.core import apply_saf_mask, sample_saf
+    mask = sample_saf(cells.shape, p, p, np.random.default_rng(seed))
+    return apply_saf_mask(cells, mask)
+
+
+@pytest.fixture(scope="module")
+def iris_tree():
+    from repro_torch.core import DT2CAM
+    from repro_torch.dt import load_split
+    Xtr, ytr, Xte, _ = load_split("iris")
+    return DT2CAM(s=16, max_depth=5, spare_rows=24).fit(Xtr, ytr), Xtr, Xte
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,seed", [(0.0, 0), (0.02, 1), (0.05, 2), (0.2, 3)])
+def test_bist_on_card_equals_plain_version(cuda, iris_tree, p, seed):
+    """The tensor BIST on the card against the per-row loop, on faulted
+    layouts holding CELL_MM cells and rows whose readback word differs."""
+    from repro_torch.reliability import run_bist, run_bist_ref
+    lay = iris_tree[0].compiled.layout
+    actual = _fault(lay.cells, p, seed)
+    args = dict(used=1 + lay.width, n_rows=lay.n_rows)
+    got = run_bist(actual, lay.cells, device=cuda, **args)
+    want = run_bist_ref(actual, lay.cells, **args)
+    np.testing.assert_array_equal(got.detected, want.detected)
+    assert got.probes_run == want.probes_run
+    if p >= 0.05:
+        assert (actual == CELL_MM).any() and got.n_defective > 0
+
+
+@pytest.mark.gpu
+def test_bist_on_card_random_grids(cuda):
+    from repro_torch.reliability import run_bist, run_bist_ref
+    rng = np.random.default_rng(5)
+    for _ in range(20):
+        r, w = (int(v) for v in rng.integers(1, 40, 2))
+        w += 1
+        used = int(rng.integers(1, w + 1))
+        intent = rng.integers(0, 4, (r, w)).astype(np.int8)
+        actual = intent.copy()
+        flip = rng.random((r, w)) < 0.2
+        actual[flip] = rng.integers(0, 4, int(flip.sum()))
+        got = run_bist(actual, intent, used=used, n_rows=r, device=cuda)
+        want = run_bist_ref(actual, intent, used=used, n_rows=r)
+        np.testing.assert_array_equal(got.detected, want.detected)
+        assert got.probes_run == want.probes_run
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dataset,s,counter", [
+    ("iris", 16, "tcam_match_bits_cuda"),            # S % 32 != 0: bitplane
+    ("cancer", 32, "tcam_match_packed_bits_cuda"),   # auto = packed
+])
+def test_row_utilization_through_the_kernel(cuda, dataset, s, counter):
+    import dataclasses
+
+    from repro_torch.core import DT2CAM, encode_inputs
+    from repro_torch.dt import load_split
+    from repro_torch.reliability import row_utilization, row_utilization_ref
+    Xtr, ytr, _, _ = load_split(dataset)
+    m = DT2CAM(s=s, max_depth=8, spare_rows=8).fit(Xtr, ytr)
+    lay = m.compiled.layout
+    xb = encode_inputs(m.compiled.lut, Xtr)
+    wrapper = getattr(tk, counter)
+    before = wrapper.launches
+    got = row_utilization(lay, xb, device=cuda)
+    assert wrapper.launches == before + 1
+    np.testing.assert_array_equal(got, row_utilization_ref(lay, xb))
+    faulted = dataclasses.replace(lay, cells=_fault(lay.cells, 0.05, 0))
+    np.testing.assert_array_equal(row_utilization(faulted, xb, device=cuda),
+                                  row_utilization_ref(faulted, xb))
+
+
+def _served_equals_tcam_infer(srv, lut, X):
+    """A served batch against ``tcam_infer`` on the server's current layout
+    with its engine and kmax, on the card."""
+    from repro_torch.core import encode_inputs
+    res = srv.serve(X)
+    want = tk.tcam_infer(srv.live_layout, encode_inputs(lut, X),
+                         kmax=srv._kmax, engine=srv.engine, device=srv.device)
+    for f, arr in (("prediction", want.predictions),
+                   ("survivor", want.survivors),
+                   ("n_survivors", want.n_survivors),
+                   ("active_evals", want.active_evals)):
+        np.testing.assert_array_equal([getattr(r, f) for r in res], arr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["auto", "mxu"])
+def test_served_batch_after_repair_uses_the_repaired_grid(cuda, iris_tree,
+                                                          engine):
+    from repro_torch.core import NonIdealSpec
+    from repro_torch.serve import ServeConfig, TCAMServer
+    m, _, Xte = iris_tree
+    srv = TCAMServer(m.compiled, nonideal=NonIdealSpec(p_sa0=0.05, p_sa1=0.05),
+                     rng=np.random.default_rng(0), device=cuda,
+                     config=ServeConfig(background=False, engine=engine,
+                                        max_batch=64))
+    _served_equals_tcam_infer(srv, m.compiled.lut, Xte)
+    report = srv.repair()
+    assert report.rows_repaired > 0
+    assert srv.self_test().n_defective == 0 or report.degraded
+    _served_equals_tcam_infer(srv, m.compiled.lut, Xte)
+    srv.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("auto_repair", [False, True])
+def test_breaker_on_card_stays_on_the_kernel(cuda, iris_tree, auto_repair):
+    """On the card the breaker's ladder ends at FAILED on the kernel's
+    engine: no batch moves to the plain version, every batch launches the
+    kernel, and the kernel's canary equals the plain version's on the
+    served grid."""
+    from repro_torch.core import NonIdealSpec
+    from repro_torch.serve import ServeConfig, TCAMServer
+    m, _, Xte = iris_tree
+    cfg = ServeConfig(background=False, engine="mxu", max_batch=16,
+                      canary_every_batches=1, canary_size=64,
+                      auto_repair=auto_repair)
+    for seed in range(6):
+        srv = TCAMServer(m.compiled, device=cuda, config=cfg,
+                         nonideal=NonIdealSpec(p_sa0=0.05, p_sa1=0.05),
+                         rng=np.random.default_rng(seed))
+        if srv.run_canary() >= cfg.canary_threshold:
+            srv.close()
+            continue
+        before = tk.tcam_match_bits_cuda.launches
+        srv.serve(Xte)
+        h = srv.health()
+        assert h["breaker"]["trips"] >= 1 and h["engine"] == "mxu"
+        assert h["state"] in ("repaired", "failed")
+        assert h["breaker"]["recovery"] in (None, "repair")
+        assert (tk.tcam_match_bits_cuda.launches - before
+                >= srv.metrics()["batches"])
+        lay, probe = srv.live_layout, srv._canary
+        plain = tk.tcam_infer(lay, probe.words[:, 1:1 + lay.width],
+                              engine="ref", device="cpu")
+        assert srv.run_canary() == probe.accuracy(plain.predictions)
+        srv.close()
+        return
+    pytest.fail("no seed produced a tripping chip at p=5%")
+
+
+@pytest.mark.gpu
+def test_served_batch_after_promote_and_rollback(cuda, iris_tree):
+    from repro_torch.core import DT2CAM
+    from repro_torch.dt import load_split
+    from repro_torch.serve import ServeConfig, TCAMServer
+    m, Xtr, Xte = iris_tree
+    _, ytr, _, _ = load_split("iris")
+    v2 = DT2CAM(s=16, max_depth=3, spare_rows=24).fit(Xtr, ytr)
+    srv = TCAMServer(m.compiled, device=cuda,
+                     config=ServeConfig(background=False, max_batch=64))
+    _served_equals_tcam_infer(srv, m.compiled.lut, Xte)
+    srv.stage(v2.compiled, mirror_fraction=1.0)
+    srv.serve(Xte[:16])
+    assert srv.promote(max_disagreement=1.0).promoted
+    _served_equals_tcam_infer(srv, v2.compiled.lut, Xte)
+    assert srv.rollback() == "reverted"
+    _served_equals_tcam_infer(srv, m.compiled.lut, Xte)
+    srv.close()
+
+
+@pytest.fixture(scope="module")
+def cancer_forest():
+    from repro_torch.dt import load_split
+    from repro_torch.forest import compile_forest, train_forest
+    Xtr, ytr, Xte, _ = load_split("cancer")
+    trees = train_forest(Xtr, ytr, n_trees=6, max_depth=6, seed=0)
+    return compile_forest(trees, s=128, spare_rows=4), Xte
+
+
+def _forest_reference(srv, forest, X):
+    """Predictions, voting survivors and active evaluations of the forest
+    server's current bank layouts (after repair), bank by bank on the CPU,
+    spare rows mapped back to LUT rows."""
+    from repro_torch.core import encode_inputs
+    from repro_torch.forest import aggregate_votes
+    Xp = forest.prepare_inputs(X)
+    survivors = np.empty((forest.n_banks, len(X)), np.int32)
+    hit = np.empty((forest.n_banks, len(X)), bool)
+    active = np.empty((forest.n_banks, len(X)), np.int64)
+    for i, bank in enumerate(forest.banks):
+        r = tk.tcam_infer(srv._f_layouts[i], encode_inputs(bank.lut, Xp),
+                          engine="ref", device="cpu")
+        hit[i] = r.n_survivors > 0
+        survivors[i] = np.where(hit[i], srv._f_row_map[i][r.survivors], -1)
+        active[i] = r.active_evals
+    en = srv._f_enabled
+    preds, _ = aggregate_votes(forest, survivors, en)
+    return preds, hit[en].sum(axis=0), active[en].sum(axis=0)
+
+
+@pytest.mark.gpu
+def test_forest_auto_on_card_launches_the_banked_kernel(cuda, cancer_forest):
+    from repro_torch.forest import ForestExecutor, forest_infer_ref
+    from repro_torch.serve import ServeConfig, TCAMServer
+    forest, Xte = cancer_forest
+    before = tk.tcam_match_banked_bits_cuda.launches
+    ex = ForestExecutor(forest, device=cuda)
+    assert ex.engine == "mxu"
+    np.testing.assert_array_equal(ex.infer(Xte).predictions,
+                                  forest_infer_ref(forest, Xte).predictions)
+    assert tk.tcam_match_banked_bits_cuda.launches > before
+    with TCAMServer(forest, device=cuda,
+                    config=ServeConfig(background=False)) as srv:
+        assert srv.engine == "mxu"
+        before = tk.tcam_match_banked_bits_cuda.launches
+        res = srv.serve(Xte[:32])
+        assert tk.tcam_match_banked_bits_cuda.launches > before
+    np.testing.assert_array_equal(
+        [r.prediction for r in res],
+        forest_infer_ref(forest, Xte[:32]).predictions)
+    with pytest.warns(RuntimeWarning, match="falling back to 'mxu'"):
+        srv = TCAMServer(forest, device=cuda,
+                         config=ServeConfig(background=False, engine="packed"))
+    assert srv.engine == "mxu"
+    srv.close()
+
+
+@pytest.mark.gpu
+def test_forest_served_after_repair_uses_the_repaired_banks(cuda,
+                                                            cancer_forest):
+    from repro_torch.core import NonIdealSpec
+    from repro_torch.serve import ServeConfig, TCAMServer
+    forest, Xte = cancer_forest
+    srv = TCAMServer(forest, nonideal=NonIdealSpec(p_sa0=0.01, p_sa1=0.01),
+                     rng=np.random.default_rng(11), device=cuda,
+                     config=ServeConfig(background=False, max_batch=64))
+    assert srv.engine == "mxu"
+    for _ in range(2):
+        res = srv.serve(Xte[:64])
+        preds, n_surv, active = _forest_reference(srv, forest, Xte[:64])
+        np.testing.assert_array_equal([r.prediction for r in res], preds)
+        np.testing.assert_array_equal([r.n_survivors for r in res], n_surv)
+        np.testing.assert_array_equal([r.active_evals for r in res], active)
+        if srv._repair_reports:
+            break
+        reports = srv.repair()
+        assert sum(r.rows_repaired for r in reports) > 0
+    srv.close()

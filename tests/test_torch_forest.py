@@ -319,15 +319,35 @@ def test_forest_server_checks_and_later_slices(native_forests):
     from repro_torch import DT2CAM, FeatureMismatch
     from repro_torch.core import DriftSpec
 
-    ft, _, Xte = native_forests
+    ft, fj, Xte = native_forests
     srv = TCAMServer(ft, config=ServeConfig(background=False), device="cpu")
     with pytest.raises(FeatureMismatch, match="expects"):
         srv.submit(Xte[0, :-1])
     m = srv.metrics()
     assert m["modelled_mdecs_pipe"] > m["modelled_mdecs_ensemble"]
-    for call in (srv.self_test, srv.repair, srv.health):
-        with pytest.raises(NotImplementedError, match="Reliability"):
-            call()
+    # chip health returns what the JAX forest server returns
+    js = repro.TCAMServer(fj, config=repro.ServeConfig(background=False))
+    for g, w in zip(srv.self_test(), js.self_test()):
+        np.testing.assert_array_equal(g.detected, w.detected)
+        assert g.summary() == w.summary()
+    for s in (srv, js):
+        with pytest.raises(RuntimeError, match="stuck-at"):
+            s.repair()
+    assert {k: v for k, v in srv.health().items() if k != "breaker"} == {
+        k: v for k, v in js.health().items() if k != "breaker"}
+    assert srv.health()["breaker"]["state"] == js.health()["breaker"]["state"]
+    p = dict(p_sa0=0.01, p_sa1=0.01)
+    fs = TCAMServer(ft, nonideal=NonIdealSpec(**p), device="cpu",
+                    rng=np.random.default_rng(5),
+                    config=ServeConfig(background=False))
+    fjs = repro.TCAMServer(fj, nonideal=JaxSpec(**p),
+                           rng=np.random.default_rng(5),
+                           config=repro.ServeConfig(background=False))
+    for g, w in zip(fs.repair(), fjs.repair()):
+        assert g.summary() == w.summary()
+        assert g.assignments == w.assignments
+    assert {k: v for k, v in fs.health().items() if k != "breaker"} == {
+        k: v for k, v in fjs.health().items() if k != "breaker"}
     with pytest.raises(NotImplementedError, match="single-model only"):
         TCAMServer(ft, nonideal=NonIdealSpec(drift=DriftSpec(nu=0.05)),
                    config=ServeConfig(background=False), device="cpu")

@@ -14,6 +14,7 @@ from repro.core import DT2CAM as JaxDT2CAM
 from repro.core import NonIdealSpec as JaxSpec
 from repro.dt import load_split
 from repro_torch.core import DT2CAM, DriftSpec, NonIdealSpec
+from repro_torch.lifecycle import WearTracker
 from repro_torch.serve import (ComputeFailed, DeadlineExceeded, Rejected,
                                ServeConfig, TCAMServer)
 
@@ -163,18 +164,36 @@ def test_engine_fallback_when_packed_illegal(iris_model):
 
 
 def test_later_slices_raise_not_implemented(iris_model):
+    """Drift and scrub, with the wear ledger they debit, are the next slice
+    (ROADMAP Queue A 1c) and raise, naming it; the canary, the breaker,
+    BIST, repair and the lifecycle calls of this slice run."""
     m, Xte, _ = iris_model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _server(m, config=ServeConfig(background=False, canary_every_batches=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="Queue A 1c"):
         _server(m, nonideal=NonIdealSpec(drift=DriftSpec(nu=0.05)))
-    srv = _server(m)
-    for call in (srv.run_canary, srv.self_test, srv.repair, srv.rollback,
-                 lambda: srv.advance_time(1.0), srv.scrub_now,
-                 lambda: srv.stage(m.compiled), srv.promote):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="Queue A 1c"):
+        _server(m, wear=WearTracker((4, 4)))
+    srv = _server(m, config=ServeConfig(background=False,
+                                        canary_every_batches=1))
+    for call in (lambda: srv.advance_time(1.0), srv.scrub_now):
+        with pytest.raises(NotImplementedError, match="Queue A 1c"):
             call()
+    assert len(srv.serve(Xte)) == len(Xte)
+    assert srv.run_canary() == 1.0
+    assert srv.metrics()["reliability"]["canary_runs"] > 1
+    assert srv.self_test().n_defective == 0
+    with pytest.raises(RuntimeError, match="stuck-at"):
+        srv.repair()                      # an ideal chip has nothing to repair
+    srv.stage(m.compiled, mirror_fraction=1.0)
+    srv.serve(Xte[:8])
+    assert srv.promote().promoted
+    assert srv.rollback() == "reverted"
+    assert srv.health()["state"] == "healthy"
     srv.close()
+    faulted = _server(m, nonideal=NonIdealSpec(p_sa0=0.02, p_sa1=0.02),
+                      rng=np.random.default_rng(3))
+    assert faulted.repair().rows_repaired == faulted.health()[
+        "last_repair"]["rows_repaired"]
+    faulted.close()
 
 
 def test_background_worker_futures_and_deadline_flush(iris_model):
