@@ -70,7 +70,21 @@ Phases (any failed check raises, so the script exits non-zero):
    to a candidate tree of half the leaves with its write figures and wear,
    stage / mirror / promote / rollback each serving equal to
    ``tcam_infer``, and a registry round trip of both models;
-8. the kernels line, the card's name and power limit, and the last line:
+8. drift, margins and scrub at credit width (``drift_phase``), with the
+   kernels' counters zeroed before and read after (the bitplane and packed
+   kernels each launched): a drifting credit server (engine auto) serves
+   fresh, equal to ``tcam_infer``; an accelerated-aging sweep logs per age
+   the rows with negative margins, the rows due, the engine ``auto``
+   resolved to (``mxu`` once drift put ``CELL_MM`` in the grid) and the
+   accuracy against the tree; at one age the served grid equals the
+   copied numpy readout over every cell and the margins the numpy loop's;
+   at the first age with rows due a margin scrub (margins, plan and
+   refresh timed apart) and serving equal to the plain version, then a
+   forced scrub after which serving equals the fresh answers; serving with
+   a periodic scrub after every batch; a breaker tripped by an aged chip
+   that recovers on the scrub rung without a repair; host-vs-card times of
+   the readout and the margins;
+9. the kernels line, the card's name and power limit, and the last line:
    ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.
@@ -112,6 +126,20 @@ UTIL_REF_INPUTS = 256        # inputs held against the plain row_utilization
 UTIL_REF_CHUNK = 64          # inputs per host thread's plain call
 HOST_THREADS = 8             # phase 7's host set-up and plain versions
 REPLICAS = 3
+# phase 8: drift, margins and scrub at credit width
+DRIFT_LAW = dict(nu=0.05, nu_sigma=0.02, retention_tau_s=2e6)
+DRIFT_SEED = 0
+# margin policy threshold: the default 0.15 V lies above S=128's design
+# margin (0.1145 V), so it would flag every row of a fresh credit chip;
+# 0.05 V refreshes a row once it has lost more than half of it
+DRIFT_MARGIN_V = 0.05
+DRIFT_AGES = (1e3, 1e4, 1e5, 1e6, 3e7)   # virtual seconds since the start
+DRIFT_REF_AGE = 3e7          # age held against the copied numpy bodies
+DRIFT_PLAIN_QUERIES = 256    # served queries held against the plain match
+DRIFT_SCRUB_REQUESTS = 2048  # served with a periodic scrub after every batch
+DRIFT_BATCH_S = 2.5e5        # virtual seconds per batch there
+DRIFT_PERIOD_S = 1e6         # periodic policy: a full refresh every 4 batches
+DRIFT_TRIP_REQUESTS = 512
 REPLACES = {"tcam_match": "src/repro/kernels/tcam_match.py:38",
             "tcam_packed": "src/repro/kernels/tcam_packed.py:30",
             "tcam_match_banked": "src/repro/kernels/banked.py:147"}
@@ -1079,6 +1107,249 @@ def health_phase(dev, tree, Xtr, ytr, Xte, golden, ideal, forest) -> None:
     log(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
 
 
+def sync_time(fn):
+    """``fn()`` between two device syncs; returns (result, wall seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+class ScrubParts:
+    """Times the parts of one ``TCAMServer.scrub_now`` call apart: the
+    margins, the refresh plan, its figures, the wear ledger's record and
+    the served grid's refresh.  Each part is wrapped with device syncs while
+    the context is open and restored after."""
+
+    def __init__(self, srv):
+        from repro_torch.degradation import scheduler
+        from repro_torch.lifecycle import WritePlan
+        self.times: dict = {}
+        self._patches = [
+            (scheduler, "plan_refresh", "plan"),
+            (WritePlan, "figures", "figures"),
+            (srv._wear, "record", "wear_record"),
+            (srv, "_compute_margins", "margins"),
+            (srv, "_refresh_served_layout", "refresh"),
+        ]
+        self._saved: list = []
+
+    def __enter__(self):
+        for owner, attr, key in self._patches:
+            orig = getattr(owner, attr)
+            had = attr in vars(owner)
+            self._saved.append((owner, attr, had, vars(owner).get(attr)))
+
+            def wrapped(*a, _orig=orig, _key=key, **k):
+                out, dt = sync_time(lambda: _orig(*a, **k))
+                self.times[_key] = self.times.get(_key, 0.0) + dt
+                return out
+            setattr(owner, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, had, value in reversed(self._saved):
+            if had:
+                setattr(owner, attr, value)
+            else:
+                delattr(owner, attr)
+
+
+def drift_phase(dev, compiled, Xte, golden, ideal) -> None:
+    """Phase 8: drift, margins and scrub on the card at credit width.
+    ``compiled`` is phase 3's credit tree (8576 x 4992 cells), ``golden``
+    its own predictions on ``Xte`` and ``ideal`` its ideal ``tcam_infer``
+    result there."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (DriftSpec, NonIdealSpec, encode_inputs,
+                                  sample_drift)
+    from repro_torch.core.lut import CELL_MM, CELL_X
+    from repro_torch.degradation import layout_margins_ref
+    from repro_torch.kernels import tcam_infer
+    from repro_torch.serve import ServeConfig, TCAMServer
+
+    n = min(SERVE_REQUESTS, len(Xte))
+    Xq = Xte[:n]
+    xq = encode_inputs(compiled.lut, Xq)
+    lay = compiled.layout
+    spec = NonIdealSpec(drift=DriftSpec(**DRIFT_LAW))
+    kernel_engines = ("packed", "mxu")
+    t_phase = time.perf_counter()
+    zero_counts()
+
+    # -- set-up: the exponents alone, then the phase's three servers --------
+    model, t_sample = sync_time(lambda: sample_drift(
+        lay.cells.shape, spec.drift, np.random.default_rng(DRIFT_SEED),
+        device=dev))
+    check(model.nu_r1.device.type == dev.type
+          and model.nu_r1.dtype == torch.float64,
+          "drift exponents live on the card in float64")
+    del model
+
+    def server(**cfg):
+        return TCAMServer(compiled, device=dev, nonideal=spec,
+                          rng=np.random.default_rng(DRIFT_SEED),
+                          config=ServeConfig(max_batch=256,
+                                             scrub_margin_v=DRIFT_MARGIN_V,
+                                             **cfg))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(server),
+                pool.submit(server, scrub_every_batches=1,
+                            scrub_policy="periodic",
+                            scrub_period_s=DRIFT_PERIOD_S,
+                            time_per_batch_s=DRIFT_BATCH_S),
+                pool.submit(server, canary_every_batches=1)]
+        srv, periodic, tripped = [j.result() for j in jobs]
+    t_setup = time.perf_counter() - t0
+    for s in (srv, periodic, tripped):
+        s.warmup()
+    log(json.dumps({"drift_setup": {
+        "sample_drift_s": t_sample, "servers_s": t_setup,
+        "phase_s": time.perf_counter() - t_phase}}))
+
+    # -- fresh -----------------------------------------------------------------
+    check(srv.drift_enabled and srv.engine == "packed",
+          "a fresh drift chip serves on packed")
+    fresh, wall = serve_timed(srv, Xq)
+    check_served(fresh, ideal, "fresh drift chip")
+    log(json.dumps({"drift_fresh_serve": serve_figures(srv, n, wall)}))
+
+    def answers(res):
+        return [(r.prediction, r.survivor, r.n_survivors, r.active_evals)
+                for r in res]
+
+    # -- the accelerated-aging sweep --------------------------------------------
+    sch = srv._scrub
+    steps, scrub, host = [], None, None
+    for age in DRIFT_AGES:
+        _, t_adv = sync_time(lambda: srv.advance_time(age - sch.now))
+        base = srv._cells_on_device("base", srv._base_layout)
+        _, t_read = sync_time(lambda: srv._drift.readout(
+            base, sch.ages(), sch.reads))
+        cells = srv.live_layout.cells
+        if age == DRIFT_REF_AGE:
+            # the served grid and the margins against the copied numpy
+            # bodies on the host, at the same stress
+            ref, t_read_ref = sync_time(lambda: srv._drift.readout_ref(
+                srv._base_layout.cells, sch.ages(), sch.reads))
+            ref[:, 1 + lay.width:] = CELL_X
+            check(np.array_equal(cells, ref),
+                  f"served grid at {age:g} s == the numpy readout over all "
+                  f"{cells.size} cells")
+            got, t_marg_card = sync_time(srv.margins)
+            want, t_marg_ref = sync_time(lambda: layout_margins_ref(
+                srv._base_layout, srv._drift, sch.ages(), sch.reads))
+            err = float(np.max(np.abs(got.margin - want.margin)))
+            check(np.allclose(got.margin_match, want.margin_match,
+                              rtol=1e-12, atol=1e-15)
+                  and np.allclose(got.margin_mismatch, want.margin_mismatch,
+                                  rtol=1e-12, atol=1e-15)
+                  and np.array_equal(sch.due(got.margin),
+                                     sch.due(want.margin)),
+                  f"margins at {age:g} s within rtol 1e-12 / atol 1e-15 of "
+                  f"the numpy loop, rows due equal")
+            host = {"age_s": age, "readout_card_ms": t_read * 1e3,
+                    "readout_host_ms": t_read_ref * 1e3,
+                    "margins_card_ms": t_marg_card * 1e3,
+                    "margins_host_ms": t_marg_ref * 1e3,
+                    "margins_max_abs_err": err}
+        _, t_warm = sync_time(srv.warmup)
+        m, t_marg = sync_time(srv.margins)
+        due = sch.due(m.margin)
+        engine = srv.engine
+        check(engine == ("mxu" if (cells == CELL_MM).any() else "packed"),
+              f"auto resolves to {engine} at {age:g} s")
+        res, wall = serve_timed(srv, Xq)
+        step = {"age_s": age, "advance_ms": t_adv * 1e3,
+                "readout_ms": t_read * 1e3, "rebuild_warmup_ms": t_warm * 1e3,
+                "margins_ms": t_marg * 1e3,
+                "cells_changed": int((cells != lay.cells).sum()),
+                "cell_mm": int((cells == CELL_MM).sum()),
+                "rows_negative": m.summary()["rows_negative"],
+                "margin_min_v": m.summary()["min_v"],
+                "rows_due": int(due.size), "engine": engine,
+                "accuracy_vs_tree": float(np.mean(
+                    [r.prediction for r in res] == golden[:n])),
+                "requests_per_s": n / wall}
+        steps.append(step)
+        log(json.dumps({"drift_age": step}))
+        if scrub is not None or not due.size:
+            continue
+        # the first age with rows due: a margin scrub, timed part by part
+        with ScrubParts(srv) as parts:
+            rep, t_scrub = sync_time(srv.scrub_now)
+        check(np.array_equal(rep.rows_refreshed, due),
+              "the margin scrub refreshed the rows due")
+        res, wall = serve_timed(srv, Xq)
+        check(srv.engine in kernel_engines, "served on a kernel")
+        plain = tcam_infer(srv.live_layout, xq[:DRIFT_PLAIN_QUERIES],
+                           engine="ref", device=dev)
+        check_served(res[:DRIFT_PLAIN_QUERIES], plain,
+                     "after a margin scrub, against the plain version")
+        forced, t_force = sync_time(lambda: srv.scrub_now(force=True))
+        check(forced.n_refreshed == lay.cells.shape[0]
+              and np.array_equal(srv.live_layout.cells, lay.cells)
+              and srv.engine == "packed",
+              "a forced scrub restores the fresh grid, on packed")
+        again, _ = serve_timed(srv, Xq)
+        check(answers(again) == answers(fresh),
+              "after a forced scrub serving equals the fresh answers")
+        scrub = {"age_s": age, "report": rep.summary(),
+                 "scrub_now_s": t_scrub,
+                 "parts_s": parts.times,
+                 "served_after_requests_per_s": n / wall,
+                 "forced": forced.summary(), "forced_s": t_force}
+        log(json.dumps({"drift_scrub": scrub}))
+    check(scrub is not None, "some age had rows due under the margin policy")
+    check(host is not None, "the reference age was in the sweep")
+    check(steps[-1]["rows_negative"] > 0 and steps[-1]["engine"] == "mxu",
+          "the oldest chip has negative margins and CELL_MM")
+    srv.close()
+
+    # -- serving with a periodic scrub after every batch ------------------------
+    Xs = Xte[:DRIFT_SCRUB_REQUESTS]
+    res, wall = serve_timed(periodic, Xs)
+    periodic.close()
+    fig = serve_figures(periodic, len(Xs), wall)
+    deg = periodic.metrics()["degradation"]
+    check(deg["scrub_passes"] == fig["batches"] and deg["rows_scrubbed"] > 0
+          and periodic.engine in kernel_engines,
+          "a scrub pass after every batch, rows refreshed, on a kernel")
+    fig.update(degradation=deg,
+               health=periodic.health()["degradation"]["margins"])
+    log(json.dumps({"drift_periodic_serve": fig}))
+
+    # -- a breaker tripped by an aged chip ----------------------------------------
+    tripped.advance_time(DRIFT_REF_AGE)
+    res, wall = serve_timed(tripped, Xq[:DRIFT_TRIP_REQUESTS])
+    tripped.close()
+    h = tripped.health()
+    check(h["breaker"]["trips"] >= 1 and h["breaker"]["recovery"] == "scrub"
+          and h["repair_attempts"] == 0 and tripped.engine in kernel_engines,
+          f"the aged chip's breaker recovers on the scrub rung: {h['breaker']}")
+    log(json.dumps({"drift_breaker": {
+        "breaker": h["breaker"], "state": h["state"],
+        "engine": tripped.engine,
+        "requests_per_s": DRIFT_TRIP_REQUESTS / wall,
+        "degradation": tripped.metrics()["degradation"]}}))
+
+    counts = read_counts()
+    log(f"phase 8 launches: {counts}")
+    log(json.dumps({"drift_host_vs_card": host}))
+    check(counts["tcam_match_bits_cuda"] > 0
+          and counts["tcam_match_packed_bits_cuda"] > 0,
+          "the bitplane and packed kernels each launched in phase 8")
+    log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1277,7 +1548,10 @@ def main() -> int:
     # -- 7. chip health and lifecycle ---------------------------------------------
     health_phase(dev, tree, Xtr, ytr, Xte, golden, ideal["auto"], forest)
 
-    # -- 8. result ---------------------------------------------------------------
+    # -- 8. drift, margins and scrub ------------------------------------------------
+    drift_phase(dev, compiled, Xte, golden, ideal["auto"])
+
+    # -- 9. result ---------------------------------------------------------------
     log(smi)
     log(json.dumps({"kernels": [bitplane, packed, banked]}))
     log(json.dumps({"ok": True, "device": {

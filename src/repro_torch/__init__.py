@@ -9,6 +9,11 @@ Forests (one TCAM bank per tree) run through ``ForestExecutor`` and a
 forest-mode ``TCAMServer``; engine 'mxu' there is the bitplane kernel with a
 bank grid axis.
 
+Temporal degradation (drift, retention, read disturb) runs on the single-tree
+``TCAMServer`` with ``NonIdealSpec(drift=DriftSpec(...))``: the drift readout
+and the sensing margins are float64 tensor ops on the card, scrubs go
+through ``degradation.ScrubScheduler``.
+
 Device rule: every entry point takes ``device=None``, which means
 ``"cuda"``; without CUDA it raises unless the caller asks for
 ``device="cpu"``, where the kernels' plain PyTorch versions run.
@@ -27,6 +32,8 @@ from .core import (
     DT2CAM,
     IDEAL,
     CompiledDT,
+    DriftModel,
+    DriftSpec,
     FeatureMismatch,
     HardwareParams,
     NonIdealSpec,
@@ -36,9 +43,11 @@ from .core import (
     compile_tree,
     forest_figures,
     predict,
+    sample_drift,
     simulate,
     train_tree,
 )
+from .degradation import ScrubPolicy, ScrubReport, ScrubScheduler
 from .device import resolve_device
 from .forest import (
     FOREST_ENGINES,
@@ -64,6 +73,9 @@ __all__ = [
     "compiled_from_arrays", "forest_from_arrays", "resolve_device",
     "ENGINES", "sa_kmax", "select_engine", "tcam_infer", "tcam_match",
     "ServeConfig", "TCAMServer",
+    # temporal degradation
+    "DriftSpec", "DriftModel", "sample_drift", "ScrubPolicy", "ScrubReport",
+    "ScrubScheduler",
     # forests
     "bank_figures", "forest_figures", "CompiledForest", "ForestBank",
     "ForestResult", "compile_forest", "train_forest", "forest_infer_ref",

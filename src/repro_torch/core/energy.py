@@ -22,7 +22,9 @@ import math
 __all__ = ["HardwareParams", "DEFAULT_HW", "dynamic_range", "max_cells_per_row",
            "t_opt", "t_cwd", "f_max", "choose_tile_size", "TABLE_IV",
            "bank_figures", "forest_figures", "write_energy",
-           "reprogram_figures"]
+           "reprogram_figures", "SenseMargins", "sensing_margins",
+           "sensing_margins_ref", "mismatch_probability",
+           "mismatch_probability_ref"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,3 +267,275 @@ def reprogram_figures(plan, hw: HardwareParams = DEFAULT_HW) -> dict:
         "time_s": pulses * hw.t_prog,
         "endurance_cycles_consumed": pulses,
     }
+
+
+# ---------------------------------------------------------------------------
+# Sensing-margin analysis — the degradation subsystem's detection model
+# ---------------------------------------------------------------------------
+# The SA references are trimmed at manufacture to the *nominal* per-division
+# V_ref (midpoint of V_fm / V_1mm for ideal Table-III resistances — the same
+# convention the simulator's sa_sigma model uses).  As cells drift, the
+# match-line voltages move while V_ref stays fixed; the distance between them
+# is the sensing margin, and a chip is due for a scrub when it shrinks.
+#
+# ``sensing_margins`` runs as float64 tensor ops on the grids' device, all
+# divisions in one reshaped (rows, divisions, S) pass; ``sensing_margins_ref``
+# is the copied numpy loop over divisions.  The tensor version sums each
+# division's conductances in numpy's pairwise order (``_pairwise_sum``), so
+# rows numpy finds tied stay tied and the rows a scrub selects, worst first,
+# come in the same order; its ``exp`` may still differ from numpy's by an
+# ulp, so the margins agree to rounding, not bit for bit.
+
+import numpy as np  # noqa: E402  (the hardware model above is numpy-free)
+import torch  # noqa: E402
+
+from ..device import DeviceLike, resolve_device  # noqa: E402
+
+_erfc = np.vectorize(math.erfc, otypes=[np.float64])
+
+
+@dataclasses.dataclass(frozen=True)
+class SenseMargins:
+    """Worst-case (over column divisions) per-row sensing margins [V].
+
+    ``margin_match``: V_ml(full match) − V_ref — headroom before a fully
+    matching row misreads as a mismatch (drifted-up LRS / drifted-down HRS
+    erode it).  ``margin_mismatch``: V_ref − V_ml(worst single mismatch) —
+    headroom before a one-mismatch row misreads as a match.  Either going
+    negative means the row *functionally* misbehaves even with ideal SAs.
+    Host (numpy) arrays, whichever device computed them.
+    """
+
+    margin_match: np.ndarray      # (rows,) [V]
+    margin_mismatch: np.ndarray   # (rows,) [V]
+    v_ref: np.ndarray             # (n_cwd,) nominal per-division reference [V]
+
+    @property
+    def margin(self) -> np.ndarray:
+        """(rows,) overall margin: min of the two failure directions."""
+        return np.minimum(self.margin_match, self.margin_mismatch)
+
+    def summary(self) -> dict:
+        m = self.margin
+        return {
+            "min_v": float(m.min()) if m.size else float("nan"),
+            "mean_v": float(m.mean()) if m.size else float("nan"),
+            "rows_negative": int((m < 0).sum()),
+        }
+
+
+def _ml_voltage(g_row, s: int, hw: HardwareParams):
+    """Match-line voltage at the sensing instant for per-row conductance
+    g_row [S]: v_dd · exp(−T_opt(S) · g / C_in)  (simulate.sense_voltage
+    with R_row = 1/g; reimplemented here because simulate imports energy).
+    numpy in, numpy out; a tensor is divided by C_in as a device tensor, an
+    IEEE division on every device."""
+    if torch.is_tensor(g_row):
+        c_in = torch.tensor(hw.c_in, dtype=torch.float64, device=g_row.device)
+        return hw.v_dd * torch.exp(-t_opt(s, hw) * g_row / c_in)
+    return hw.v_dd * np.exp(-t_opt(s, hw) * np.asarray(g_row) / hw.c_in)
+
+
+def _pairwise_sum(a: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the order of numpy's float64 ``sum``
+    (``pairwise_sum`` in numpy's ``loops_utils.h.src``): under 8 terms one
+    running sum from -0.0; up to 128, eight running lanes combined as
+    ((0+1)+(2+3))+((4+5)+(6+7)), then the remainder; above, the two halves
+    (split at a multiple of 8) summed alike and added."""
+    n = a.shape[-1]
+    if n < 8:
+        res = torch.full(a.shape[:-1], -0.0, dtype=a.dtype, device=a.device)
+        for i in range(n):
+            res = res + a[..., i]
+        return res
+    if n <= 128:
+        m = n - n % 8
+        r = a[..., :8].clone()
+        for i in range(8, m, 8):
+            r += a[..., i:i + 8]
+        res = (((r[..., 0] + r[..., 1]) + (r[..., 2] + r[..., 3]))
+               + ((r[..., 4] + r[..., 5]) + (r[..., 6] + r[..., 7])))
+        for i in range(m, n):
+            res = res + a[..., i]
+        return res
+    n2 = n // 2
+    n2 -= n2 % 8
+    return _pairwise_sum(a[..., :n2]) + _pairwise_sum(a[..., n2:])
+
+
+def _division_refs(cols: int, s: int, used: int, hw: HardwareParams):
+    """Per division: its real (unmasked) column count and its nominal
+    reference V_ref (ideal resistances, n_eff = real; 0 where real = 0)."""
+    n_cwd = max(1, -(-cols // s))
+    reals = np.zeros(n_cwd, np.int64)
+    v_refs = np.zeros(n_cwd)
+    for d in range(n_cwd):
+        lo = d * s
+        real = max(0, min((d + 1) * s, used, cols) - lo)
+        if real == 0:
+            continue
+        reals[d] = real
+        g_fm_nom = real / hw.r_cell_match
+        g_1mm_nom = (real - 1) / hw.r_cell_match + 1.0 / hw.r_cell_mismatch
+        v_refs[d] = 0.5 * (_ml_voltage(g_fm_nom, s, hw)
+                           + _ml_voltage(g_1mm_nom, s, hw))
+    return reals, v_refs
+
+
+def sensing_margins(
+    r_match,
+    r_mismatch,
+    *,
+    s: int,
+    used: int,
+    hw: HardwareParams = DEFAULT_HW,
+    determinate=None,
+    device: DeviceLike = None,
+) -> SenseMargins:
+    """Per-row sensing margins of a (possibly drifted) cell grid, as float64
+    tensor ops.
+
+    ``r_match`` / ``r_mismatch`` are (rows, cols) per-cell effective
+    resistances in the match / mismatch search state (e.g. from
+    ``DriftModel.cell_resistances``; at zero drift every determinate cell sits
+    at ``hw.r_cell_match`` / ``hw.r_cell_mismatch`` and the margins equal the
+    design margins).  ``used`` = 1 + layout.width: columns at or beyond it are
+    masked (OFF-OFF) and excluded, matching the simulator.  ``determinate``
+    optionally masks which cells can actually mismatch (CELL_X never does);
+    by default every unmasked cell is considered.  Tensors are used on their
+    own device; numpy grids go to ``device`` (None = the card).
+    """
+    if not torch.is_tensor(r_match):
+        dev = resolve_device(device)
+    else:
+        dev = r_match.device
+    r_match = torch.as_tensor(r_match, dtype=torch.float64, device=dev)
+    r_mismatch = torch.as_tensor(r_mismatch, dtype=torch.float64, device=dev)
+    if r_match.shape != r_mismatch.shape or r_match.ndim != 2:
+        raise ValueError("r_match / r_mismatch must be equal-shape 2-D grids")
+    rows, cols = r_match.shape
+    reals, v_refs = _division_refs(cols, s, used, hw)
+    n_cwd = v_refs.shape[0]
+    live = np.flatnonzero(reals > 0)
+    if live.size == 0:
+        inf = np.full(rows, np.inf)
+        return SenseMargins(margin_match=inf, margin_mismatch=inf.copy(),
+                            v_ref=v_refs)
+    pad = n_cwd * s - cols
+    real = torch.arange(cols, device=dev) < min(used, cols)
+    det = real.expand(rows, cols)
+    if determinate is not None:
+        det = torch.as_tensor(determinate, device=dev).to(torch.bool) & det
+
+    def divisions(t: torch.Tensor) -> torch.Tensor:
+        """(rows, cols) -> (rows, D, S), zero columns past ``cols``."""
+        if pad:
+            t = torch.nn.functional.pad(t, (0, pad))
+        return t.view(rows, n_cwd, s)
+
+    # every division at once; unmasked columns only, each division's real
+    # columns summed in numpy's order (one group per real-column count)
+    g_cells = divisions(torch.where(real, torch.reciprocal(r_match), 0.0))
+    g_fm = torch.zeros((rows, n_cwd), dtype=torch.float64, device=dev)
+    for n_real in np.unique(reals[live]):
+        idx = torch.from_numpy(np.flatnonzero(reals == n_real)).to(dev)
+        g_fm[:, idx] = _pairwise_sum(g_cells[:, idx, :int(n_real)])
+    v_ref = torch.from_numpy(v_refs).to(dev)
+    sel = torch.from_numpy(live).to(dev)
+    m_match = (_ml_voltage(g_fm, s, hw) - v_ref)[:, sel].amin(dim=1)
+
+    # worst single mismatch: the determinate cell whose match->mismatch
+    # swap adds the LEAST conductance discharges the line the least and
+    # sits closest to (or above) V_ref
+    delta = divisions(torch.reciprocal(r_mismatch)) - g_cells
+    del g_cells
+    delta = torch.where(divisions(det.to(torch.uint8)) > 0, delta,
+                        float("inf"))
+    d_min = delta.amin(dim=2)                          # inf if none can mm
+    del delta
+    has_mm = torch.isfinite(d_min)
+    v_1mm = _ml_voltage(torch.where(has_mm, g_fm + d_min, 0.0), s, hw)
+    m_mm = torch.where(has_mm, v_ref - v_1mm, float("inf"))
+    m_mismatch = m_mm[:, sel].amin(dim=1)
+    return SenseMargins(margin_match=m_match.cpu().numpy(),
+                        margin_mismatch=m_mismatch.cpu().numpy(),
+                        v_ref=v_refs)
+
+
+def sensing_margins_ref(
+    r_match: np.ndarray,
+    r_mismatch: np.ndarray,
+    *,
+    s: int,
+    used: int,
+    hw: HardwareParams = DEFAULT_HW,
+    determinate: np.ndarray | None = None,
+) -> SenseMargins:
+    """``sensing_margins`` as the copied numpy loop over divisions."""
+    r_match = np.asarray(r_match, dtype=np.float64)
+    r_mismatch = np.asarray(r_mismatch, dtype=np.float64)
+    if r_match.shape != r_mismatch.shape or r_match.ndim != 2:
+        raise ValueError("r_match / r_mismatch must be equal-shape 2-D grids")
+    rows, cols = r_match.shape
+    n_cwd = max(1, -(-cols // s))
+    if determinate is None:
+        determinate = np.ones((rows, cols), dtype=bool)
+
+    m_match = np.full(rows, np.inf)
+    m_mismatch = np.full(rows, np.inf)
+    v_refs = np.zeros(n_cwd)
+    for d in range(n_cwd):
+        lo = d * s
+        real = max(0, min((d + 1) * s, used, cols) - lo)
+        if real == 0:
+            continue
+        # nominal division references (ideal resistances, n_eff = real)
+        g_fm_nom = real / hw.r_cell_match
+        g_1mm_nom = (real - 1) / hw.r_cell_match + 1.0 / hw.r_cell_mismatch
+        v_ref = 0.5 * (_ml_voltage(g_fm_nom, s, hw)
+                       + _ml_voltage(g_1mm_nom, s, hw))
+        v_refs[d] = v_ref
+
+        g_cells = 1.0 / r_match[:, lo:lo + real]          # (rows, real)
+        g_fm = g_cells.sum(axis=1)                        # all cells match
+        m_match = np.minimum(m_match, _ml_voltage(g_fm, s, hw) - v_ref)
+
+        det = determinate[:, lo:lo + real]
+        delta = np.where(det, 1.0 / r_mismatch[:, lo:lo + real] - g_cells,
+                         np.inf)
+        d_min = delta.min(axis=1)                         # inf if none can mm
+        has_mm = np.isfinite(d_min)
+        if has_mm.any():
+            v_1mm = _ml_voltage(g_fm[has_mm] + d_min[has_mm], s, hw)
+            m_mismatch[has_mm] = np.minimum(m_mismatch[has_mm], v_ref - v_1mm)
+
+    return SenseMargins(margin_match=m_match, margin_mismatch=m_mismatch,
+                        v_ref=v_refs)
+
+
+def mismatch_probability(margin, sa_sigma: float, *,
+                         device: DeviceLike = None) -> torch.Tensor:
+    """Probability that an SA with reference offset ~N(0, sa_sigma) misreads
+    a row with the given sensing margin [V]: the Gaussian tail beyond the
+    margin.  sa_sigma = 0 degenerates to a step (0 / ½ / 1).  A float64
+    tensor on the margin's device (a numpy margin goes to ``device``)."""
+    dev = margin.device if torch.is_tensor(margin) else resolve_device(device)
+    m = torch.as_tensor(margin, dtype=torch.float64, device=dev)
+    if sa_sigma < 0:
+        raise ValueError(f"sa_sigma must be >= 0, got {sa_sigma}")
+    if sa_sigma == 0:
+        return torch.where(m > 0, 0.0,
+                           torch.where(m < 0, 1.0, torch.full_like(m, 0.5)))
+    scale = torch.tensor(sa_sigma * math.sqrt(2.0), dtype=torch.float64,
+                         device=dev)
+    return 0.5 * torch.special.erfc(m / scale)
+
+
+def mismatch_probability_ref(margin, sa_sigma: float) -> np.ndarray:
+    """``mismatch_probability`` as the copied numpy body."""
+    m = np.asarray(margin, dtype=np.float64)
+    if sa_sigma < 0:
+        raise ValueError(f"sa_sigma must be >= 0, got {sa_sigma}")
+    if sa_sigma == 0:
+        return np.where(m > 0, 0.0, np.where(m < 0, 1.0, 0.5))
+    return 0.5 * _erfc(m / (sa_sigma * math.sqrt(2.0)))

@@ -20,9 +20,10 @@ CUDA match kernels:
 Chip-static non-idealities (stuck-at faults, SA V_ref offsets) are sampled
 once at server construction — one faulty chip serving many queries — and
 per-query input noise (σ_in) is drawn per batch.  The draws come from the
-server's numpy ``rng`` in the JAX package's order: stuck faults, SA offsets,
-the golden canary vectors, then one σ_in draw per batch; so a port server
-and a JAX server seeded alike serve identical results.
+server's numpy ``rng`` in the JAX package's order: stuck faults, drift
+exponents, SA offsets, the golden canary vectors, then one σ_in draw per
+batch; so a port server and a JAX server seeded alike serve identical
+results.
 
 Reliability layer (``reliability``): the stuck-fault state is kept as a
 persistent per-element ``SAFMask``, so the server can *self-test*
@@ -32,10 +33,10 @@ vectors replayed through the compute path).  Serving protections: bounded
 queue with load shedding (``Rejected``), per-request queueing deadlines
 (``DeadlineExceeded``), retry-with-backoff for transient compute failures
 (``ComputeFailed`` after the budget), and a periodic canary that trips a
-circuit breaker driving the degradation ladder degraded -> repair -> re-vote
--> failed, on the engine it was serving (on the CPU, as in the JAX server,
-an engine fallback to 'ref' comes before failed).  Every submitted Future
-resolves — with a result or a typed error.
+circuit breaker driving the degradation ladder degraded -> scrub (under
+drift) -> repair -> re-vote -> failed, on the engine it was serving (on the
+CPU, as in the JAX server, an engine fallback to 'ref' comes before
+failed).  Every submitted Future resolves — with a result or a typed error.
 
 Lifecycle (``lifecycle``): ``stage()`` loads a candidate model into a shadow
 slot with its own chip state and device operands, a fraction of live
@@ -58,10 +59,21 @@ survivors on remapped spare rows translated through a physical->LUT row
 map back to the right vote entries, and a bank whose repair stays degraded
 is disabled (drops out of the vote and the divisor).
 
-Not in this slice (they raise ``NotImplementedError``): drift and scrub
-(``advance_time``, ``scrub_now``, the breaker's scrub rung, the ``wear=``
-endurance ledger they debit).  ``ROADMAP.md``
-Queue A 1c lists them.
+Temporal degradation (``degradation``): with ``NonIdealSpec.drift`` set, the
+chip's conductances walk on a *virtual clock* (advanced per batch via
+``ServeConfig.time_per_batch_s`` or explicitly via ``advance_time``) and the
+served cell grid is re-derived from the drifted readout at maintenance
+epochs.  The drift exponents live on the device, and the readout, the stuck
+elements' re-pinning and the per-row sensing margins are tensor ops there;
+a readout that changes the served grid drops the device operands and
+re-resolves the engine (drift can add or remove ``CELL_MM``).  A
+``ScrubScheduler`` tracks per-row write times / read counts, and a periodic
+maintenance pass (``scrub_every_batches``) refreshes out-of-margin rows
+through the lifecycle ``WritePlan`` machinery — refresh energy lands in the
+metrics and the pulses debit the (optionally shared) ``WearTracker``
+endurance ledger.  The breaker's ladder gains a first rung: drifted ->
+scrub + refresh -> canary re-vote, before BIST+repair.  Drift is
+single-model only, as in the JAX server.
 
 Run ``background=True`` (default) for a worker thread + Future-based
 completion, or ``background=False`` for deterministic single-threaded tests
@@ -85,7 +97,8 @@ from ..core.compiler import CompiledDT, FeatureMismatch
 from ..core.encode import encode_inputs
 from ..core.energy import DEFAULT_HW, HardwareParams, f_max, forest_figures
 from ..core.lut import CELL_1, CELL_X
-from ..core.nonideal import (IDEAL, NonIdealSpec, SAFMask, apply_saf_mask,
+from ..core.nonideal import (IDEAL, DriftModel, NonIdealSpec, SAFMask,
+                             apply_saf_mask, pin_stuck, sample_drift,
                              sample_saf)
 from ..device import DeviceLike, resolve_device
 from ..kernels.ops import (MatchOperands, _finalize, prepare_match, run_match,
@@ -99,11 +112,10 @@ from .errors import ComputeFailed, DeadlineExceeded, Rejected
 from .metrics import ServeMetrics
 
 if TYPE_CHECKING:
+    from ..degradation import ScrubReport, ScrubScheduler
     from ..forest.compiler import CompiledForest
 
 __all__ = ["PromotionReport", "RequestResult", "ServeConfig", "TCAMServer"]
-
-_DRIFT_SLICE = "ROADMAP.md Queue A 1c, 'Drift and scrub'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +142,13 @@ class ServeConfig:
     # -- build cache ----------------------------------------------------------
     compile_cache_size: Optional[int] = None  # LRU bound on built batch
                                               # fns (None = unbounded)
+    # -- temporal degradation (drift scrub & refresh) -----------------------
+    scrub_every_batches: int = 0       # 0 disables the maintenance pass
+    scrub_policy: str = "margin"       # 'margin' | 'periodic'
+    scrub_margin_v: float = 0.15       # refresh rows at/below this margin [V]
+    scrub_period_s: float = 3600.0     # periodic policy: refresh age [s]
+    scrub_max_rows: Optional[int] = None   # rows per pass (None = unbounded)
+    time_per_batch_s: float = 0.0      # virtual seconds of drift per batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,16 +252,6 @@ class TCAMServer:
                 "drift modelling is single-model only for now; model "
                 "bank drift with per-bank TCAMServer instances"
             )
-        if nonideal.has_drift:
-            raise NotImplementedError(
-                f"drift serving is not ported yet: {_DRIFT_SLICE}"
-            )
-        if wear is not None:
-            # only the scrub scheduler and the degradation health read the
-            # endurance ledger: both come with drift
-            raise NotImplementedError(
-                f"TCAMServer(wear=) is not ported yet: {_DRIFT_SLICE}"
-            )
         self.device = resolve_device(device)
         self._hw = hw
         self._config = config
@@ -250,6 +259,16 @@ class TCAMServer:
         self._clock = clock
         self._rng = rng or np.random.default_rng(0)
         self.metrics_store = ServeMetrics()
+        # endurance ledger shared with the lifecycle subsystem: refresh
+        # pulses and redeploy pulses debit the same per-cell counts
+        self._wear = wear
+        self._drift: Optional[DriftModel] = None
+        self._scrub: Optional[ScrubScheduler] = None
+        self._batches_since_scrub = 0
+        # device copies of host grids the drift path reads each epoch
+        # (served and base cells, the stuck mask), keyed by name and
+        # rebuilt when the host object they copy is replaced
+        self._dev_copies: dict = {}
         # device operands per engine (single tree) or per "engine:g<i>"
         # plan group (forest), shared by every bucket's batch function and
         # dropped whenever the served grid changes
@@ -323,6 +342,39 @@ class TCAMServer:
             faulted[:, 1 + layout.width:] = CELL_X
             layout = dataclasses.replace(layout, cells=faulted)
         self._layout = layout
+        # zero-drift served layout: the grid the chip would read back right
+        # after programming; under drift the live self._layout is re-derived
+        # from this base at maintenance epochs
+        self._base_layout = layout
+        if nonideal.has_drift:
+            # imported here: degradation -> lifecycle -> registry -> convert
+            # -> forest -> serve would close a cycle at import time
+            from ..degradation import ScrubPolicy, ScrubScheduler
+            from ..lifecycle.wear import WearTracker
+
+            # drawn after the stuck faults and before the SA offsets: the
+            # JAX server's order
+            self._drift = sample_drift(
+                self._intent.shape, nonideal.drift, self._rng,
+                device=self.device,
+            )
+            if self._config.scrub_policy not in ("margin", "periodic"):
+                raise ValueError(
+                    f"unknown scrub_policy {self._config.scrub_policy!r}"
+                )
+            if self._wear is None:
+                self._wear = WearTracker(self._intent.shape, hw=self._hw)
+            self._scrub = ScrubScheduler(
+                self._intent.shape[0],
+                policy=ScrubPolicy(
+                    kind=self._config.scrub_policy,
+                    margin_v=self._config.scrub_margin_v,
+                    period_s=self._config.scrub_period_s,
+                    max_rows=self._config.scrub_max_rows,
+                ),
+                wear=self._wear,
+                hw=self._hw,
+            )
         self._kmax: Optional[np.ndarray] = None
         if nonideal.sa_sigma > 0:
             offsets = self._rng.normal(
@@ -681,6 +733,7 @@ class TCAMServer:
                     raise err
                 break
         self._maybe_canary()
+        self._maybe_scrub()
 
     def _process_inner_single(self, batch: list, deadline_flush: bool) -> None:
         t_form = self._clock()
@@ -703,6 +756,11 @@ class TCAMServer:
         out = fn(xpad)
         self._sync()
         compute_s = self._clock() - t_form
+        if self._scrub is not None:
+            # this batch was served by the pre-advance chip state; the clock
+            # ticks and the read-disturb counters accumulate afterwards
+            self._scrub.advance(self._config.time_per_batch_s)
+            self._scrub.note_reads(n)
 
         preds, survivors, nsurv, active = (o[:n].cpu().numpy() for o in out)
         # shadow deployment: mirror this (post-noise) batch to the staged
@@ -822,8 +880,8 @@ class TCAMServer:
         self._f_enabled = mask
 
     # -- lifecycle: shadow deployment, promotion, rollback ------------------
-    _SWAP_ATTRS = ("_lut", "_intent", "_saf_mask", "_layout", "_kmax",
-                   "engine", "_operands", "cache", "_canary")
+    _SWAP_ATTRS = ("_lut", "_intent", "_saf_mask", "_layout", "_base_layout",
+                   "_kmax", "engine", "_operands", "cache", "_canary")
 
     def _snapshot_model(self) -> dict:
         return {a: getattr(self, a) for a in self._SWAP_ATTRS}
@@ -1043,11 +1101,17 @@ class TCAMServer:
             self._restore_model({
                 "_lut": cand.lut, "_intent": cand.intent,
                 "_saf_mask": cand.saf_mask, "_layout": cand.layout,
+                "_base_layout": cand.layout,
                 "_kmax": cand.kmax, "engine": cand.engine,
                 "_operands": cand.operands, "cache": cand.cache,
                 "_canary": cand.canary,
             })
             self._candidate = None
+            if self._scrub is not None:
+                # the promotion reprogrammed the whole array: every row's
+                # drift clock restarts at the freshly-written state
+                self._scrub.note_write()
+                self._refresh_served_layout()
             self.metrics_store.on_promotion(True)
             if cand.canary is not None:
                 self.metrics_store.on_canary(
@@ -1116,14 +1180,29 @@ class TCAMServer:
             )
         if defects is None:
             defects = self.self_test()
+        # repair is a *programming* operation: it diffs and rewrites against
+        # the base (zero-drift) grid.  Detection stayed honest — self_test
+        # probed the drifted served grid, so retention-flipped rows can land
+        # here too; the scrub rung runs first in _recover to avoid burning
+        # spares on rows a refresh would have fixed.
         new_layout, new_intent, report = repair_layout(
-            self._layout, self._intent, self._saf_mask,
+            self._base_layout, self._intent, self._saf_mask,
             defects.defective_rows, priority=priority,
         )
+        self._base_layout = new_layout
         self._layout, self._intent = new_layout, new_intent
         self._repair_reports.append(report)
         self.metrics_store.on_repair(report.rows_repaired)
-        self._rebuild_compute()
+        if self._scrub is not None:
+            # the spares just written + the decoder-disabled originals were
+            # all physically programmed: their drift clocks restart
+            written = list(report.assignments.values()) + \
+                list(np.asarray(report.blocked_rows).ravel())
+            if written:
+                self._scrub.note_write(written)
+            self._refresh_served_layout(force=True)
+        else:
+            self._rebuild_compute()
         return report
 
     def _repair_forest(self, defects) -> list:
@@ -1158,9 +1237,10 @@ class TCAMServer:
         return reports
 
     def _rebuild_compute(self) -> None:
-        """After the served grid changed (repair): re-resolve engine
-        legality (repair writes can add/remove CELL_MM), drop the device
-        operands built from the old grid, and re-key the build cache."""
+        """After the served grid changed (repair, a drifted readout):
+        re-resolve engine legality (repair writes and drift can add/remove
+        CELL_MM), drop the device operands built from the old grid, and
+        re-key the build cache."""
         if self._forest is not None:
             if self.engine != "ref":
                 self.engine = self._resolve_forest_engine(self._config.engine)
@@ -1198,10 +1278,10 @@ class TCAMServer:
             self._recover()
 
     def _recover(self) -> None:
-        """Degradation ladder: repair the chip, re-voting the canary; if
-        still failing, mark FAILED (the server keeps answering on the same
-        engine — degradation stays graceful).  The drift slice puts a scrub
-        rung before repair (ROADMAP Queue A 1c).
+        """Degradation ladder: scrub drifted rows, then repair the chip,
+        re-voting the canary after each rung; if still failing, mark FAILED
+        (the server keeps answering on the same engine — degradation stays
+        graceful).
 
         On the CPU the JAX server's last rung stays: fall back to the 'ref'
         engine before FAILED, shown by ``health()``.  On the card there is
@@ -1209,6 +1289,15 @@ class TCAMServer:
         could restore the canary only where a kernel disagrees with its
         plain version, and it would move serving off the card for good."""
         thr = self._config.canary_threshold
+        if self._scrub is not None:
+            # first rung: a full refresh undoes retention/drift damage
+            # without consuming spare rows — cheaper than repair when the
+            # trip was temporal, a no-op-equivalent when it was stuck-at
+            self.scrub_now(force=True)
+            acc = self.run_canary()
+            if acc >= thr:
+                self.breaker.recovered("scrub", acc)
+                return
         if self._config.auto_repair and self._saf_mask is not None:
             self.repair()
             acc = self.run_canary()
@@ -1263,20 +1352,153 @@ class TCAMServer:
                 self._repair_reports[-1].summary()
                 if self._repair_reports else None
             ),
-            "degradation": None,      # drift and scrub: ROADMAP Queue A 1c
+            "degradation": (
+                self._degradation_health() if self._scrub is not None
+                else None
+            ),
         }
 
-    # -- drift and scrub: a later slice -------------------------------------
-    def _not_ported(self, what: str):
-        raise NotImplementedError(
-            f"TCAMServer.{what} is not ported yet: {_DRIFT_SLICE}"
+    # -- temporal degradation: drift clock, margins, scrub passes -----------
+    @property
+    def drift_enabled(self) -> bool:
+        """True when the chip was constructed with a drift model."""
+        return self._scrub is not None
+
+    def _require_drift(self) -> ScrubScheduler:
+        if self._scrub is None:
+            raise RuntimeError(
+                "drift modelling disabled: construct the server with "
+                "NonIdealSpec(drift=DriftSpec(...))"
+            )
+        return self._scrub
+
+    def _blocked_rows(self) -> np.ndarray:
+        """Decoder-disabled rows from every repair so far: they carry no
+        live content, so refreshing them would waste endurance."""
+        if not self._repair_reports:
+            return np.zeros(0, np.int64)
+        return np.unique(np.concatenate([
+            np.asarray(r.blocked_rows, dtype=np.int64).ravel()
+            for r in self._repair_reports
+        ] + [np.zeros(0, np.int64)]))
+
+    def _compute_margins(self):
+        from ..degradation import layout_margins
+        return layout_margins(
+            self._base_layout, self._drift,
+            self._scrub.ages(), self._scrub.reads, self._hw,
         )
 
-    def advance_time(self, dt: float) -> float:
-        self._not_ported("advance_time")
+    def _on_device(self, key: str, obj, make):
+        """The device copy ``make(obj)`` of a host object, kept under
+        ``key`` and rebuilt once ``obj`` is replaced (repair, promotion)."""
+        hit = self._dev_copies.get(key)
+        if hit is None or hit[0] is not obj:
+            hit = (obj, make(obj))
+            self._dev_copies[key] = hit
+        return hit[1]
 
-    def scrub_now(self, *, force: bool = False):
-        self._not_ported("scrub_now")
+    def _cells_on_device(self, key: str, layout) -> torch.Tensor:
+        return self._on_device(
+            key, layout, lambda lay: torch.from_numpy(lay.cells).to(
+                self.device))
+
+    def _refresh_served_layout(self, *, force: bool = False) -> None:
+        """Re-derive the served grid on the device: base (programmed) layout
+        -> drift readout at the rows' current stress -> stuck elements
+        re-pinned -> padding columns masked.  The compute (engine, device
+        operands, build cache) is only rebuilt when the readout grid
+        actually changed (``force`` bypasses the comparison, e.g. right
+        after a repair replaced the base layout itself)."""
+        base = self._base_layout
+        cells = self._drift.readout(
+            self._cells_on_device("base", base),
+            self._scrub.ages(), self._scrub.reads, self._hw,
+        )
+        if self._saf_mask is not None:
+            mask = self._on_device("saf", self._saf_mask, lambda m: SAFMask(
+                *(torch.from_numpy(a).to(self.device) for a in (
+                    m.sa0_r1, m.sa1_r1, m.sa0_r2, m.sa1_r2))))
+            cells = pin_stuck(cells, mask)
+        cells[:, 1 + base.width:] = CELL_X
+        if not force and torch.equal(
+                cells, self._cells_on_device("served", self._layout)):
+            return
+        # every batch ends in a sync under the model lock, which this runs
+        # under too: no launch still reads the operands dropped below
+        self._sync()
+        self._layout = dataclasses.replace(base, cells=cells.cpu().numpy())
+        self._dev_copies["served"] = (self._layout, cells)
+        self._rebuild_compute()
+
+    def advance_time(self, dt: float) -> float:
+        """Advance the drift virtual clock by ``dt`` seconds and re-derive
+        the served grid (accelerated-aging campaigns drive this directly;
+        live serving ticks it via ``ServeConfig.time_per_batch_s``).
+        Returns the new virtual now."""
+        with self._model_lock:
+            sch = self._require_drift()
+            now = sch.advance(dt)
+            self._refresh_served_layout()
+        return now
+
+    def margins(self):
+        """Per-row ``SenseMargins`` of the live chip at its current drift
+        state (worst case over column divisions), computed on the device."""
+        with self._model_lock:
+            self._require_drift()
+            return self._compute_margins()
+
+    def scrub_now(self, *, force: bool = False) -> ScrubReport:
+        """One scrub pass: policy-selected rows (``force=True``: every
+        non-blocked row) are refreshed through the lifecycle ``WritePlan``
+        machinery — pulses debit the wear ledger, energy/time land in the
+        metrics — and the served grid is re-derived.
+
+        Runs under the model lock, so a pass lands entirely between batches:
+        in-flight requests are never dropped or double-resolved."""
+        with self._model_lock:
+            sch = self._require_drift()
+            base = self._base_layout
+            if force:
+                plan, report = sch.scrub(
+                    base.cells, used=1 + base.width,
+                    blocked=self._blocked_rows(),
+                    force_rows=np.arange(sch.n_rows),
+                )
+            else:
+                margins = (self._compute_margins().margin
+                           if sch.policy.kind == "margin" else None)
+                plan, report = sch.scrub(
+                    base.cells, margins, used=1 + base.width,
+                    blocked=self._blocked_rows(),
+                )
+            self.metrics_store.on_scrub(
+                report.n_refreshed,
+                report.figures["energy_j"],
+                report.figures["pulses"],
+            )
+            self._refresh_served_layout()
+        return report
+
+    def _maybe_scrub(self) -> None:
+        """Background maintenance: every ``scrub_every_batches`` processed
+        batches, run one policy-driven scrub pass."""
+        if self._scrub is None or self._config.scrub_every_batches <= 0:
+            return
+        self._batches_since_scrub += 1
+        if self._batches_since_scrub < self._config.scrub_every_batches:
+            return
+        self._batches_since_scrub = 0
+        self.scrub_now()
+
+    def _degradation_health(self) -> dict:
+        snap = self._scrub.snapshot()
+        snap["margins"] = self._compute_margins().summary()
+        snap["blocked_rows"] = int(self._blocked_rows().size)
+        if self._wear is not None:
+            snap["wear"] = self._wear.snapshot()
+        return snap
 
     # -- convenience & lifecycle -------------------------------------------
     def serve(self, X: np.ndarray) -> list[RequestResult]:

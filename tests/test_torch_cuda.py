@@ -27,6 +27,12 @@ warp whose rows take every test (kmax -1, 0, > 0 and all-don't-care
 divisions), search words repeated within a tile (the kernel tests one
 word per class of equal words), the wide path (S = 160, 256) with launch
 counts by path, and its row-major entry against the prepacked one.
+
+Drift on the card: the tensor readout equal to its copied numpy body, the
+tensor margins within their tolerance of theirs (rows due equal), and a
+drifting server that launches the bitplane kernel on a grid drift filled
+with CELL_MM and the packed kernel after a full scrub, with every ``*_ref``
+function of the port patched to raise.
 """
 import numpy as np
 import pytest
@@ -787,3 +793,126 @@ def test_forest_served_after_repair_uses_the_repaired_banks(cuda,
         reports = srv.repair()
         assert sum(r.rows_repaired for r in reports) > 0
     srv.close()
+
+
+# --------------------------------------------------------------------------
+# drift, margins and scrub on the card
+# --------------------------------------------------------------------------
+DRIFT_KW = dict(nu=0.05, nu_sigma=0.02, retention_tau_s=2e6)
+
+
+def _drift_grid(iris_tree, rng):
+    """The iris layout stacked on 4096 random rows of its width."""
+    cells = iris_tree[0].compiled.layout.cells
+    extra = rng.integers(0, 4, (4096, cells.shape[1])).astype(np.int8)
+    return np.concatenate([cells, extra])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [0.0, 1e5, 1e6, 3e7])
+def test_drift_readout_on_card_equals_plain_version(cuda, iris_tree, t):
+    from repro_torch.core import DriftSpec, sample_drift
+    rng = np.random.default_rng(3)
+    cells = _drift_grid(iris_tree, rng)
+    model = sample_drift(cells.shape, DriftSpec(read_disturb_s=5.0, **DRIFT_KW),
+                         np.random.default_rng(0), device=cuda)
+    ages = rng.uniform(0.0, t, cells.shape[0])
+    reads = rng.integers(0, 1000, cells.shape[0])
+    got = model.readout(cells, ages, reads)
+    assert got.device.type == "cuda" and got.dtype == torch.int8
+    want = model.readout_ref(cells, ages, reads)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    if t == 0.0:
+        np.testing.assert_array_equal(want, cells)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [0.0, 1e6, 3e7])
+def test_layout_margins_on_card_within_tolerance(cuda, iris_tree, t):
+    """rtol=1e-12, atol=1e-15: the card sums each division in numpy's
+    order, but its exp may differ by an ulp; the rows due under the margin
+    policy are equal, worst first, with every row flagged too (at t=0
+    equal rows tie)."""
+    import dataclasses
+
+    from repro_torch.core import DriftSpec, sample_drift
+    from repro_torch.degradation import (ScrubPolicy, ScrubScheduler,
+                                         layout_margins, layout_margins_ref)
+    rng = np.random.default_rng(4)
+    lay = iris_tree[0].compiled.layout
+    lay = dataclasses.replace(lay, cells=_drift_grid(iris_tree, rng))
+    model = sample_drift(lay.cells.shape, DriftSpec(**DRIFT_KW),
+                         np.random.default_rng(1), device=cuda)
+    ages = rng.uniform(0.0, t, lay.cells.shape[0])
+    got = layout_margins(lay, model, ages, 0)
+    want = layout_margins_ref(lay, model, ages, 0)
+    for f in ("margin_match", "margin_mismatch"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=1e-12, atol=1e-15)
+    np.testing.assert_array_equal(got.v_ref, want.v_ref)
+    for margin_v in (0.15, 1.0):
+        sch = ScrubScheduler(lay.cells.shape[0],
+                             policy=ScrubPolicy(margin_v=margin_v))
+        np.testing.assert_array_equal(sch.due(got.margin),
+                                      sch.due(want.margin))
+
+
+@pytest.mark.gpu
+def test_drift_server_on_card_runs_the_kernels_and_no_plain_version(
+        cuda, monkeypatch):
+    """A drifting server at S=32: fresh it serves on the packed kernel, aged
+    (CELL_MM in the served grid) on the bitplane kernel, after a full scrub
+    on the packed kernel again, and with every ``*_ref`` function of the
+    port raising; its answers equal the plain version's afterwards."""
+    import sys
+
+    from repro_torch.core import (CELL_MM, DT2CAM, DriftModel, DriftSpec,
+                                  NonIdealSpec, encode_inputs)
+    from repro_torch.dt import load_split
+    from repro_torch.serve import ServeConfig, TCAMServer
+    Xtr, ytr, Xte, _ = load_split("iris")
+    m = DT2CAM(s=32, max_depth=5).fit(Xtr, ytr)
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card path")
+
+    for name, mod in list(sys.modules.items()):
+        if name.startswith("repro_torch"):
+            for attr in dir(mod):
+                if attr.endswith("_ref") and callable(getattr(mod, attr)):
+                    monkeypatch.setattr(mod, attr, refuse)
+    for attr in ("growth_ref", "readout_ref", "cell_resistances_ref"):
+        monkeypatch.setattr(DriftModel, attr, refuse)
+
+    srv = TCAMServer(m.compiled, nonideal=NonIdealSpec(
+        drift=DriftSpec(**DRIFT_KW)), rng=np.random.default_rng(0),
+        device=cuda, config=ServeConfig(background=False, max_batch=64))
+    packed, bits = tk.tcam_match_packed_bits_cuda, tk.tcam_match_bits_cuda
+    assert srv.engine == "packed"
+    p0 = packed.launches
+    fresh = srv.serve(Xte)
+    assert packed.launches > p0
+    srv.advance_time(3e7)
+    aged_layout = srv.live_layout
+    assert (aged_layout.cells == CELL_MM).any() and srv.engine == "mxu"
+    assert srv.margins().summary()["rows_negative"] > 0
+    b0 = bits.launches
+    aged = srv.serve(Xte)
+    assert bits.launches > b0
+    assert srv.scrub_now(force=True).n_refreshed == len(aged_layout.cells)
+    assert srv.engine == "packed"
+    p1 = packed.launches
+    scrubbed = srv.serve(Xte)
+    assert packed.launches > p1
+    srv.close()
+    monkeypatch.undo()
+
+    xb = encode_inputs(m.compiled.lut, Xte)
+    for res, lay in ((fresh, m.compiled.layout), (aged, aged_layout),
+                     (scrubbed, m.compiled.layout)):
+        want = tk.tcam_infer(lay, xb, engine="ref", device="cpu")
+        for f, arr in (("prediction", want.predictions),
+                       ("survivor", want.survivors),
+                       ("n_survivors", want.n_survivors),
+                       ("active_evals", want.active_evals)):
+            np.testing.assert_array_equal([getattr(r, f) for r in res], arr)

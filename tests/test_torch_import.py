@@ -51,6 +51,9 @@ def test_entry_points_refuse_to_default_to_the_cpu(no_cuda):
     from repro_torch import (DT2CAM, ForestExecutor, ServeConfig, TCAMServer,
                              compile_forest, plan_forest, resolve_device,
                              tcam_infer, tcam_match_banked, train_forest)
+    from repro_torch.core import (DriftSpec, NonIdealSpec,
+                                  mismatch_probability, sample_drift,
+                                  sensing_margins)
     from repro_torch.dt import load_split
     from repro_torch.kernels import prepare_banked, prepare_match, tcam_match
 
@@ -77,6 +80,12 @@ def test_entry_points_refuse_to_default_to_the_cpu(no_cuda):
         lambda: prepare_banked(grp.cells, grp.s),
         lambda: TCAMServer(forest),
         lambda: TCAMServer(forest, config=ServeConfig(engine="mxu")),
+        lambda: sample_drift((2, 2), DriftSpec(nu=0.05)),
+        lambda: sensing_margins(np.ones((2, 4)), np.ones((2, 4)), s=4,
+                                used=4),
+        lambda: mismatch_probability(np.zeros(3), 0.05),
+        lambda: TCAMServer(m.compiled,
+                           nonideal=NonIdealSpec(drift=DriftSpec(nu=0.05))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -164,18 +164,27 @@ def test_engine_fallback_when_packed_illegal(iris_model):
 
 
 def test_later_slices_raise_not_implemented(iris_model):
-    """Drift and scrub, with the wear ledger they debit, are the next slice
-    (ROADMAP Queue A 1c) and raise, naming it; the canary, the breaker,
-    BIST, repair and the lifecycle calls of this slice run."""
+    """No slice of the single-model server is left to port: drift and scrub
+    (ROADMAP Queue A 1c, the last one) run, with the wear ledger they
+    debit, beside the canary, the breaker, BIST, repair and the lifecycle
+    calls; a chip without drift refuses the drift calls as the JAX server
+    does, and no call raises ``NotImplementedError``."""
     m, Xte, _ = iris_model
-    with pytest.raises(NotImplementedError, match="Queue A 1c"):
-        _server(m, nonideal=NonIdealSpec(drift=DriftSpec(nu=0.05)))
-    with pytest.raises(NotImplementedError, match="Queue A 1c"):
-        _server(m, wear=WearTracker((4, 4)))
-    srv = _server(m, config=ServeConfig(background=False,
-                                        canary_every_batches=1))
+    wear = WearTracker(m.compiled.layout.cells.shape)
+    drifting = _server(m, nonideal=NonIdealSpec(drift=DriftSpec(nu=0.05)),
+                       wear=wear)
+    assert drifting.drift_enabled
+    assert drifting.advance_time(1e7) == 1e7
+    assert drifting.scrub_now(force=True).n_refreshed == len(
+        m.compiled.layout.cells)
+    assert drifting.health()["degradation"]["wear"] == wear.snapshot()
+    assert wear.total_pulses > 0
+    drifting.close()
+    srv = _server(m, wear=WearTracker((4, 4)),
+                  config=ServeConfig(background=False,
+                                     canary_every_batches=1))
     for call in (lambda: srv.advance_time(1.0), srv.scrub_now):
-        with pytest.raises(NotImplementedError, match="Queue A 1c"):
+        with pytest.raises(RuntimeError, match="NonIdealSpec"):
             call()
     assert len(srv.serve(Xte)) == len(Xte)
     assert srv.run_canary() == 1.0
