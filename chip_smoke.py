@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: build the CUDA kernels,
 drive the single-tree and forest paths at Give Me Some Credit scale, hold
-each kernel against its plain PyTorch version, serve requests, and print
-what was measured.
+each kernel against its plain PyTorch version, serve requests, run the LM
+serving path at qwen3-moe-235b-a22b's width, and print what was measured.
 
     python3 chip_smoke.py
 
@@ -84,13 +84,32 @@ Phases (any failed check raises, so the script exits non-zero):
    a periodic scrub after every batch; a breaker tripped by an aged chip
    that recovers on the scrub rung without a repair; host-vs-card times of
    the readout and the margins;
-9. the kernels line, the card's name and power limit, and the last line:
+9. the LM serving path at full width (``lm_phase``), with the kernels'
+   counters zeroed before and read after (this path launches none of the
+   match kernels): ``qwen3_moe_235b_a22b`` at every published width, cut
+   from 94 to ``LM_LAYERS`` = 4 layers, the earlier phases' device memory
+   freed first; ``init_params`` on the card (count, bytes, peak memory);
+   ``prefill`` of 256 tokens then ``decode_step`` of one against
+   ``forward`` at capacity factor 16, in f32 compute (every token routed
+   alike, logits within 5e-2) and in bf16 as served (within 5e-2 where
+   every layer routed alike; elsewhere the experts may differ only at a
+   near tie of the gates, which bf16 rounding flips); a prefill of 8 x 2048
+   ``make_batch`` tokens and 32 greedy decode steps timed with CUDA
+   events, all logits finite, beside their bounds (bytes over the memory
+   rate, bf16 and f32 operations over their peak rates); one MoE layer on
+   64 f32 tokens against the dense per-expert computation; layer 0's
+   softmax router distilled into a CART tree on 64 columns of the
+   prefill's normed hidden states, compiled by ``compile_router`` and
+   routed by ``route_tcam`` on the card, equal to the tree on every
+   token, and ``moe_ffn(router="tcam_dt")`` at full width;
+10. the kernels line, the card's name and power limit, and the last line:
    ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import statistics
@@ -140,6 +159,25 @@ DRIFT_SCRUB_REQUESTS = 2048  # served with a periodic scrub after every batch
 DRIFT_BATCH_S = 2.5e5        # virtual seconds per batch there
 DRIFT_PERIOD_S = 1e6         # periodic policy: a full refresh every 4 batches
 DRIFT_TRIP_REQUESTS = 512
+LM_ARCH = "qwen3_moe_235b_a22b"   # the LM phase: every published width,
+LM_LAYERS = 4                # 94 layers cut to 4: f32 weights of 44.8 GB
+LM_BATCH = 8                 # timed prefill of LM_BATCH x LM_PROMPT tokens,
+LM_PROMPT = 2048             # then LM_DECODE greedy decode steps
+LM_DECODE = 32
+LM_SEED = 0
+LM_CHECK_BATCH = 2           # prefill of LM_CHECK_SEQ tokens, then decode of
+LM_CHECK_SEQ = 256           # one, against forward over LM_CHECK_SEQ + 1 at
+LM_CHECK_CF = 16.0           # capacity factor 16 (as the JAX package's test)
+LM_CHECK_TOL = 5e-2          # rtol = atol on bf16 logits (the same test's)
+LM_MOE_TOKENS = 64           # f32 tokens through one MoE layer, held against
+LM_MOE_TOL = 2e-4            # the dense per-expert computation (test_models)
+LM_ROUTER_FEATURES = 64      # hidden-state columns the CART router sees: the
+LM_ROUTER_DEPTH = 10         # fit loops over features on the host
+LM_ROUTER_LEAVES = 256
+# Dense peak rates by card (NVIDIA data sheets, no sparsity), operations/s:
+# bf16 on the tensor cores, f32 outside them.  The name decides.
+PEAK_FLOPS = (("H200", 989e12, 67e12), ("H100 NVL", 835e12, 60e12),
+              ("H100 PCIe", 756e12, 51e12), ("H100", 989e12, 67e12))
 REPLACES = {"tcam_match": "src/repro/kernels/tcam_match.py:38",
             "tcam_packed": "src/repro/kernels/tcam_packed.py:30",
             "tcam_match_banked": "src/repro/kernels/banked.py:147"}
@@ -1350,6 +1388,355 @@ def drift_phase(dev, compiled, Xte, golden, ideal) -> None:
     log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
 
 
+def lm_work(cfg, weight_bytes: int, batch: int, seq: int,
+            cache_len: int = 0, experts_read: int | None = None) -> dict:
+    """What one ``prefill`` of ``batch`` x ``seq`` tokens (``cache_len`` 0)
+    or one ``decode_step`` of ``batch`` tokens over a ``cache_len`` cache
+    of an attention + MoE model does: bf16 and f32 operations, and the bytes
+    moved (``weight_bytes``, every weight but the embedding table read once,
+    plus the embedding rows gathered, the KV cache written or read once in
+    bf16 and the last logits written once).  ``"reference"`` counts the work
+    as the reference computes it: the chunked attention's full block
+    products in f32 (causal masking wastes about half of them in prefill),
+    every capacity slot of every token group, every expert read.
+    ``"function"`` counts what the function needs: the causal query-key
+    pairs with bf16 products, the T*k dispatched rows, and of the experts'
+    weights only the ``experts_read`` (summed over layers; all if None)
+    that the tokens chose.  The router's product is f32 in both."""
+    from repro_torch.models.moe import capacity
+    d, v = cfg.d_model, cfg.vocab_size
+    nh, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    e, f, k = cfg.n_experts, cfg.expert_ff, cfg.experts_per_token
+    n = cfg.n_layers
+    t = batch * seq
+    groups = cfg.moe_groups if t % cfg.moe_groups == 0 else 1
+    slots = e * capacity(cfg, t // groups) * groups
+    keys = cache_len or seq
+    causal_pairs = (batch * cache_len if cache_len
+                    else batch * seq * (seq + 1) // 2)
+    proj = 2 * t * d * (nh + 2 * kv) * hd + 2 * t * nh * hd * d
+    qk_pv = 2 * 2 * nh * hd                         # per query-key pair
+    router = 2 * t * d * e
+    head = 2 * batch * d * v
+    rest_bytes = (4 * min(t, v) * d + n * 2 * batch * keys * kv * hd * 2
+                  + 2 * batch * v)
+    unread = n * e - (n * e if experts_read is None else experts_read)
+    return {
+        "reference": {
+            "bf16_ops": n * (proj + 3 * 2 * slots * d * f) + head,
+            "f32_ops": n * (router + qk_pv * batch * seq * keys),
+            "bytes": weight_bytes + rest_bytes},
+        "function": {
+            "bf16_ops": n * (proj + qk_pv * causal_pairs
+                             + 3 * 2 * t * k * d * f) + head,
+            "f32_ops": n * router,
+            "bytes": weight_bytes - unread * 3 * d * f * 4 + rest_bytes},
+    }
+
+
+def recorded_route(picks: list):
+    """``moe.route`` that also appends each call's expert indices to
+    ``picks``; calls come layer by layer, token groups in token order."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recording(xt, p, cfg, router_bits=None):
+        top_w, top_i = route(xt, p, cfg, router_bits)
+        picks.append(top_i)
+        return top_w, top_i
+    return recording
+
+
+def lm_bound_ms(work: dict, bw: float, peaks: tuple) -> tuple[float, str]:
+    """The least time for ``work``: the larger of its bytes over the memory
+    rate and its operations over the peak rate of their type."""
+    t_bytes = work["bytes"] / bw
+    t_ops = work["bf16_ops"] / peaks[0] + work["f32_ops"] / peaks[1]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def peak_flops(name: str) -> tuple:
+    for key, bf16, f32 in PEAK_FLOPS:
+        if key in name:
+            return bf16, f32
+    raise RuntimeError(f"no peak-rate entry for card {name!r}")
+
+
+def event_ms(fn):
+    """``fn()`` between two CUDA events; returns (result, milliseconds)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def lm_consistency(params, cfg, toks, dtype):
+    """``prefill`` of ``toks[:, :-1]`` then ``decode_step`` of the last
+    token, against ``forward(toks)[:, -1]``, with ``dtype`` as the compute
+    dtype.  Prefill and decode take the experts that ``forward`` chose for
+    the same token in the same layer, weighted by their own gates: at 128
+    experts top-8 the 8th and 9th gates often lie closer than bf16 rounding
+    moves them, and one flipped expert moves the logits by more than any
+    tolerance.  With the choices fixed, everything else on the path
+    (attention over the ring caches, the gate weights, the experts, the
+    logits) answers to the tolerance on every sequence.  Returns (decode
+    logits, forward logits, and per stage the number of (token, layer)
+    pairs whose own top-k differs from forward's)."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.models import (decode_step, forward, init_cache, lm,
+                                    moe, prefill)
+    b, s = toks.shape[0], toks.shape[1] - 1
+    n, k = cfg.n_layers, cfg.experts_per_token
+    route = moe.route
+    chosen = []
+
+    def replaying(xt, p, c, router_bits=None):
+        nonlocal cursor, n_flip
+        top_i = queue[cursor:cursor + xt.shape[0]]
+        cursor += xt.shape[0]
+        own = route(xt, p, c, router_bits)[1]
+        n_flip += int((own.sort(-1).values != top_i.sort(-1).values)
+                      .any(-1).sum())
+        gates = torch.softmax(xt.float() @ p["w_router"].float(), dim=-1)
+        top_w = gates.gather(1, top_i)
+        top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+        return top_w, top_i
+
+    flips = {}
+    with mock.patch.object(lm, "COMPUTE_DTYPE", dtype):
+        with mock.patch.object(moe, "route", recorded_route(chosen)):
+            want = forward(params, cfg, toks)[:, -1].float()
+        fwd = torch.cat(chosen).reshape(n, b, s + 1, k)
+        caches = init_cache(cfg, b, s + 8, dtype=dtype, device=toks.device)
+        with mock.patch.object(moe, "route", replaying):
+            queue, cursor, n_flip = fwd[:, :, :s].reshape(-1, k), 0, 0
+            prefill(params, cfg, toks[:, :-1], caches)
+            check(cursor == queue.shape[0], "prefill took forward's experts")
+            flips["prefill"] = n_flip
+            queue, cursor, n_flip = fwd[:, :, s].reshape(-1, k), 0, 0
+            got = decode_step(params, cfg, toks[:, -1:], caches, s)[0][:, 0]
+            check(cursor == queue.shape[0], "decode took forward's experts")
+            flips["decode"] = n_flip
+    return got.float(), want, flips
+
+
+def lm_phase(dev, name: str, bw: float) -> dict:
+    """Phase 9: the LM serving path of ``LM_ARCH`` at its published widths,
+    cut to ``LM_LAYERS`` layers, on the card: init, prefill -> decode
+    against ``forward``, a timed prefill and greedy decode beside their
+    bounds, one MoE layer against the dense per-expert computation, and
+    layer 0's softmax router distilled into a CART tree routed by
+    ``route_tcam``.  Returns the phase's record."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import predict, train_tree
+    from repro_torch.data import make_batch
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    lm, moe, param_count, prefill)
+    from repro_torch.models.tcam_router import compile_router, route_tcam
+
+    t_phase = time.perf_counter()
+    zero_counts()
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=LM_LAYERS)
+    kind = cfg.pattern[0]
+    check(kind == "attn+moe" and len(cfg.pattern) == 1,
+          f"{LM_ARCH} is one attention + MoE block kind")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 products run in f32, not TF32")
+    log(f"lm: {cfg.name} reduced: n_layers {full.n_layers} -> "
+        f"{cfg.n_layers}; every width as published (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv x {cfg.head_dim}, "
+        f"{cfg.n_experts} experts top-{cfg.experts_per_token} x "
+        f"{cfg.expert_ff}, vocab {cfg.vocab_size}); memory before: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+
+    # -- init on the card ---------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = sync_time(lambda: init_params(cfg, LM_SEED, device=dev))
+    leaves = [*(v for k, v in params.items() if k != "blocks"),
+              *params["blocks"][kind].values()]
+    n_params = param_count(params)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    norms = cfg.n_layers * (2 * cfg.d_model + 2 * cfg.head_dim) + cfg.d_model
+    check(all(t.device.type == dev.type and t.dtype == torch.float32
+              for t in leaves), "params are f32 on the card")
+    check(n_params == cfg.n_params() + norms,
+          f"param count {n_params} == the config's {cfg.n_params()} + norms")
+    log(f"lm init: {n_params} params, {w_bytes / 1e9:.2f} GB f32, "
+        f"{t_init:.2f} s, max allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # -- prefill -> decode against forward --------------------------------------
+    ccfg = dataclasses.replace(cfg, capacity_factor=LM_CHECK_CF)
+    toks = torch.from_numpy(make_batch(ccfg, LM_CHECK_BATCH, LM_CHECK_SEQ + 1,
+                                       seed=LM_SEED)["tokens"]).to(dev)
+    consistency = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        got, want, flips = lm_consistency(params, ccfg, toks, dtype)
+        check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+              f"{dtype}: prefill/decode and forward logits are finite")
+        err = (got - want).abs().amax(dim=-1).tolist()
+        check(torch.allclose(got, want, rtol=LM_CHECK_TOL, atol=LM_CHECK_TOL),
+              f"{dtype}: with forward's experts, prefill -> decode equals "
+              f"forward within {LM_CHECK_TOL} on every sequence (max abs "
+              f"err by sequence {err})")
+        consistency[str(dtype).split(".")[-1]] = rec = {
+            "max_abs_err_by_seq": err, "own_topk_differs": flips}
+        log(json.dumps({"lm_prefill_decode_vs_forward": {
+            "dtype": str(dtype), "batch": LM_CHECK_BATCH,
+            "prompt": LM_CHECK_SEQ, "cf": LM_CHECK_CF, **rec}}))
+    check(consistency["float32"]["own_topk_differs"]["decode"] == 0,
+          "in f32 compute decode's own router picks forward's experts")
+    del toks
+
+    # -- timed prefill and greedy decode ------------------------------------
+    toks = torch.from_numpy(make_batch(cfg, LM_BATCH, LM_PROMPT, step=1,
+                                       seed=LM_SEED)["tokens"]).to(dev)
+    caches = init_cache(cfg, LM_BATCH, LM_PROMPT + LM_DECODE, device=dev)
+    prefill(params, cfg, toks, caches)          # warm-up, same shapes
+    (logits, caches), prefill_ms = event_ms(
+        lambda: prefill(params, cfg, toks, caches))
+    finite = torch.isfinite(logits).all()
+    tok = logits.argmax(-1)
+    step_ms = []
+    for i in range(LM_DECODE):
+        last = tok
+        (logits, caches), ms = event_ms(
+            lambda: decode_step(params, cfg, tok, caches, LM_PROMPT + i))
+        step_ms.append(ms)
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)
+    check(bool(finite), "every prefill and decode logit is finite")
+    check(bool((caches[kind]["slot_pos"][:, :LM_PROMPT + LM_DECODE]
+                == torch.arange(LM_PROMPT + LM_DECODE, device=dev)).all()),
+          "the caches hold every prompt and decoded position")
+    # the experts the last step's tokens chose, from a rerun of that step
+    # (it writes the same keys and values to the same cache slot)
+    picks = []
+    with mock.patch.object(moe, "route", recorded_route(picks)):
+        decode_step(params, cfg, last, caches, LM_PROMPT + LM_DECODE - 1)
+    experts_read = sum(int(torch.unique(r).numel())
+                       for r in torch.cat(picks).reshape(cfg.n_layers, -1))
+    peaks = peak_flops(name)
+    no_embed = w_bytes - params["embed"].numel() * 4
+    pre_work = lm_work(cfg, no_embed, LM_BATCH, LM_PROMPT)
+    dec_work = lm_work(cfg, no_embed, LM_BATCH, 1, LM_PROMPT + LM_DECODE,
+                       experts_read)
+    bounds = {f"{stage}_{what}": lm_bound_ms(work[what], bw, peaks)
+              for stage, work in (("prefill", pre_work), ("decode", dec_work))
+              for what in ("reference", "function")}
+    tokens = LM_BATCH * LM_PROMPT
+    serve = {
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": LM_DECODE,
+        "prefill_ms": prefill_ms, "prefill_tokens_per_s":
+            tokens / prefill_ms * 1e3,
+        "prefill_bound_tokens_per_s":
+            tokens / bounds["prefill_reference"][0] * 1e3,
+        "prefill_work": pre_work,
+        "decode_ms_per_step_median": statistics.median(step_ms),
+        "decode_ms_per_step_mean": statistics.mean(step_ms),
+        "decode_ms_first_step": step_ms[0],
+        "decode_experts_read": experts_read,
+        "decode_work": dec_work,
+        "bound_ms_by": bounds,
+        "peak_rates": {"bytes_per_s": bw, "bf16_ops_per_s": peaks[0],
+                       "f32_ops_per_s": peaks[1]},
+        "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log(json.dumps({"lm_serve": serve}))
+    del logits, caches, tok, last
+
+    # -- one MoE layer against the dense per-expert computation -------------
+    p0 = {k: v[0] for k, v in params["blocks"][kind].items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+    x = torch.randn((1, LM_MOE_TOKENS, cfg.d_model), generator=gen,
+                    device=dev)                    # f32: no bf16 rounding
+    y = moe.moe_ffn(x, p0, cfg)
+    xt = x.reshape(-1, cfg.d_model)
+    top_w, top_i = moe.route(xt, p0, cfg)
+    gates = torch.softmax(xt @ p0["w_router"], dim=-1)
+    w_ref, i_ref = torch.topk(gates, cfg.experts_per_token, dim=-1)
+    check(torch.equal(top_i, i_ref), "the layer's experts equal top-k")
+    g = cfg.moe_groups if LM_MOE_TOKENS % cfg.moe_groups == 0 else 1
+    c = moe.capacity(cfg, LM_MOE_TOKENS // g)
+    ranks = torch.cat([moe._positions_in_expert(grp.reshape(-1),
+                                                cfg.n_experts)
+                       for grp in top_i.reshape(g, -1, top_i.shape[1])])
+    check(bool((ranks < c).all()), "no capacity drops on the MoE check")
+    w_ref = w_ref / w_ref.sum(-1, keepdim=True)
+    dense = torch.stack([
+        (torch.nn.functional.silu(xt @ p0["w_gate"][e]) * (xt @ p0["w_up"][e]))
+        @ p0["w_down"][e] for e in range(cfg.n_experts)], 1)
+    want = torch.einsum("tk,tkd->td", w_ref,
+                        torch.take_along_dim(dense, i_ref[..., None], 1))
+    moe_err = float((y.reshape(-1, cfg.d_model) - want).abs().max())
+    check(torch.allclose(y.reshape(-1, cfg.d_model), want, rtol=LM_MOE_TOL,
+                         atol=LM_MOE_TOL),
+          f"MoE layer equals the dense per-expert reference (err {moe_err})")
+    log(f"lm moe layer: {LM_MOE_TOKENS} tokens, {g} groups of capacity {c}, "
+        f"max abs err vs dense per-expert {moe_err:.3g} (tol {LM_MOE_TOL})")
+    del x, y, xt, dense, want, gates
+
+    # -- layer 0's softmax router distilled into a TCAM tree ----------------
+    sin, cos = lm._rope_tables(cfg, torch.arange(LM_PROMPT, device=dev))
+    ctx = lm.Ctx(mode="full", sin=sin, cos=cos)
+    with torch.no_grad():
+        h = lm._attention_mixer(kind, lm._embed(params, cfg, toks), p0, cfg,
+                                ctx, None)
+        xn = lm._norm(h, p0["norm2"], cfg)        # what layer 0's router sees
+    xt = xn.reshape(-1, cfg.d_model)
+    teacher = moe.route(xt, p0, cfg)[1][:, 0].cpu().numpy()
+    feats = xt[:, :LM_ROUTER_FEATURES].float().cpu().numpy()
+    t0 = time.perf_counter()
+    tree = train_tree(feats, teacher, max_depth=LM_ROUTER_DEPTH,
+                      max_leaves=LM_ROUTER_LEAVES)
+    t_fit = time.perf_counter() - t0
+    bits = compile_router(tree, device=dev)
+    routed, route_ms = event_ms(lambda: route_tcam(xt, bits))
+    golden = predict(tree, feats)
+    routed = routed.cpu().numpy()
+    check(np.array_equal(routed, golden),
+          "route_tcam on the card equals the tree on every token")
+    tcfg = dataclasses.replace(cfg, router="tcam_dt")
+    y = moe.moe_ffn(xn, p0, tcfg, router_bits=bits)
+    check(y.shape == xn.shape and y.dtype == xn.dtype
+          and bool(torch.isfinite(y).all()),
+          "moe_ffn(router='tcam_dt') output is finite, of the input's shape")
+    router = {
+        "tokens": int(xt.shape[0]), "features": LM_ROUTER_FEATURES,
+        "tree_leaves": int(tree.n_leaves), "fit_s": t_fit,
+        "lut_rows": int(bits["is0"].shape[0]),
+        "lut_bits": int(bits["is0"].shape[1]), "route_ms": route_ms,
+        "equal_to_tree": True,
+        "agreement_with_teacher_top1": float((routed == teacher).mean()),
+    }
+    log(json.dumps({"lm_router": router}))
+    del params, toks, h, xn, xt, y, p0, bits
+
+    counts = read_counts()
+    log(f"phase 9 launches: {counts}")
+    check(not any(counts.values()), "the LM path launches no match kernel")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 9: {seconds:.1f} s")
+    return {"serve": serve, "router": router, "consistency": consistency,
+            "moe_err": moe_err, "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1551,7 +1938,12 @@ def main() -> int:
     # -- 8. drift, margins and scrub ------------------------------------------------
     drift_phase(dev, compiled, Xte, golden, ideal["auto"])
 
-    # -- 9. result ---------------------------------------------------------------
+    # -- 9. the LM serving path at full width ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_phase(dev, name, bw)
+
+    # -- 10. result --------------------------------------------------------------
     log(smi)
     log(json.dumps({"kernels": [bitplane, packed, banked]}))
     log(json.dumps({"ok": True, "device": {

@@ -14,6 +14,11 @@ Temporal degradation (drift, retention, read disturb) runs on the single-tree
 and the sensing margins are float64 tensor ops on the card, scrubs go
 through ``degradation.ScrubScheduler``.
 
+The LM serving path of the attention families (``forward``, ``prefill``,
+``decode_step`` over ``init_params`` / ``init_cache``; configs in
+``repro_torch.configs``) runs on plain tensor ops, with the MoE layer's
+TCAM decision-tree router in ``repro_torch.models.tcam_router``.
+
 Device rule: every entry point takes ``device=None``, which means
 ``"cuda"``; without CUDA it raises unless the caller asks for
 ``device="cpu"``, where the kernels' plain PyTorch versions run.
@@ -26,7 +31,8 @@ Device rule: every entry point takes ``device=None``, which means
     >>> forest = repro_torch.compile_forest(repro_torch.train_forest(X, y))
     >>> res = repro_torch.ForestExecutor(forest, engine="mxu").infer(Xq)
 """
-from .convert import compiled_from_arrays, forest_from_arrays
+from .convert import (compiled_from_arrays, forest_from_arrays,
+                      lm_params_from_arrays)
 from .core import (
     DEFAULT_HW,
     DT2CAM,
@@ -64,6 +70,9 @@ from .forest import (
 )
 from .kernels import (BANKED_ENGINES, ENGINES, sa_kmax, select_engine,
                       tcam_infer, tcam_match, tcam_match_banked)
+from .models import (ARCH_FAMILIES, ModelConfig, decode_step, forward,
+                     init_cache, init_params, param_count, param_logical_axes,
+                     prefill)
 from .serve import ServeConfig, TCAMServer
 
 __all__ = [
@@ -81,4 +90,8 @@ __all__ = [
     "ForestResult", "compile_forest", "train_forest", "forest_infer_ref",
     "aggregate_votes", "ForestPlan", "plan_forest", "ForestExecutor",
     "FOREST_ENGINES", "tcam_match_banked", "BANKED_ENGINES",
+    # the LM serving path
+    "ARCH_FAMILIES", "ModelConfig", "decode_step", "forward", "init_cache",
+    "prefill", "init_params", "param_count", "param_logical_axes",
+    "lm_params_from_arrays",
 ]

@@ -20,21 +20,29 @@ several (a forest stores bank ``i`` under ``b{i}__``).
 ``b{i}__`` with its soft-vote table ``b{i}__proba`` where it has one.  The
 vote rule is not in the blob (the registry keeps it in its index), so the
 caller names it.
+
+``lm_params_from_arrays`` carries an LM's parameters across: it takes the
+JAX package's param pytree as numpy arrays (``jax.tree.map(np.asarray,
+params)``) and returns the port's pytree of tensors on ``device``, with the
+same nesting, values, dtypes (bfloat16 included) and stacked layout.
 """
 from __future__ import annotations
 
 from typing import Mapping
 
 import numpy as np
+import torch
 
 from .core.cart import DecisionTree
 from .core.compiler import CompiledDT
 from .core.lut import TernaryLUT
 from .core.reduce import RuleTable
 from .core.synth import TCAMLayout
+from .device import DeviceLike, resolve_device
 from .forest.compiler import CompiledForest, ForestBank
 
-__all__ = ["compiled_from_arrays", "forest_from_arrays"]
+__all__ = ["compiled_from_arrays", "forest_from_arrays",
+           "lm_params_from_arrays"]
 
 
 def compiled_from_arrays(z: Mapping[str, np.ndarray],
@@ -90,3 +98,25 @@ def forest_from_arrays(z: Mapping[str, np.ndarray],
         cast_f32=bool(int(z["f__cast_f32"])),
         s=int(z["f__s"]),
     )
+
+
+def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    a = np.require(a, requirements=("C", "W"))   # torch wants writable
+    if a.dtype.name == "bfloat16":   # numpy's bfloat16 extension type
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(dev, copy=True)   # never shares the caller's buffer
+
+
+def lm_params_from_arrays(tree, *, device: DeviceLike = None):
+    """The port's LM params from the JAX package's, given as numpy arrays
+    in nested dicts; tensors on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return _tensor(np.asarray(t), dev)
+
+    return conv(tree)

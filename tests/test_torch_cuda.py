@@ -916,3 +916,93 @@ def test_drift_server_on_card_runs_the_kernels_and_no_plain_version(
                        ("n_survivors", want.n_survivors),
                        ("active_evals", want.active_evals)):
             np.testing.assert_array_equal([getattr(r, f) for r in res], arr)
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: the card against the same port on the CPU
+# ---------------------------------------------------------------------------
+LM_BF16 = dict(rtol=5e-2, atol=5e-2)   # bf16 logits, as the CPU parity tests
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "gemma_7b"])
+def test_lm_on_card_equals_cpu(cuda, arch):
+    """forward, prefill and decode_step of a reduced config on the card
+    equal the port on the CPU with the same weights and tokens; the card's
+    own init runs there too."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import make_batch
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_params, param_count, prefill)
+    cfg = get_reduced(arch)
+    cpu = torch.device("cpu")
+    p_cpu = init_params(cfg, 0, device=cpu)
+    p_gpu = _to(p_cpu, cuda)
+    mine = init_params(cfg, 0, device=cuda)
+    assert param_count(mine) == param_count(p_cpu)
+    assert all(v.is_cuda for v in mine["blocks"][cfg.pattern[0]].values())
+    toks = make_batch(cfg, 2, 17, step=0)["tokens"]
+    outs = []
+    for dev, p in ((cpu, p_cpu), (cuda, p_gpu)):
+        full = forward(p, cfg, toks)
+        caches = init_cache(cfg, 2, 24, device=dev)
+        last, caches = prefill(p, cfg, toks[:, :-1], caches)
+        dec, caches = decode_step(p, cfg, toks[:, -1:], caches, 16)
+        assert full.device.type == dev.type and dec.device.type == dev.type
+        outs.append([t.float().cpu().numpy() for t in (full, last, dec)]
+                    + [caches[cfg.pattern[0]]["slot_pos"].cpu().numpy()])
+    (want, got) = outs
+    for g, w in zip(got[:3], want[:3]):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, **LM_BF16)
+    np.testing.assert_array_equal(got[3], want[3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups,cf", [(1, 8.0), (2, 8.0), (1, 0.25)])
+def test_moe_ffn_on_card_equals_cpu(cuda, groups, cf):
+    from repro_torch.models import init_params, moe
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(name="t", family="moe", n_layers=1, d_model=16,
+                      n_heads=2, n_kv_heads=2, head_dim=8, d_ff=32,
+                      vocab_size=64, pattern=("attn+moe",), n_experts=4,
+                      experts_per_token=2, moe_d_ff=32, moe_groups=groups,
+                      capacity_factor=cf)
+    p = {k: v[0] for k, v in init_params(
+        cfg, 3, device="cpu")["blocks"]["attn+moe"].items()}
+    pg = _to(p, cuda)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 32, 16)).astype(np.float32))
+    xg = x.to(cuda)
+    _, top_cpu = moe.route(x.reshape(-1, 16), p, cfg)
+    _, top_gpu = moe.route(xg.reshape(-1, 16), pg, cfg)
+    assert torch.equal(top_gpu.cpu(), top_cpu)
+    pos_cpu = moe._positions_in_expert(top_cpu.reshape(-1), 4)
+    pos_gpu = moe._positions_in_expert(top_gpu.reshape(-1), 4)
+    assert torch.equal(pos_gpu.cpu(), pos_cpu)
+    np.testing.assert_allclose(moe.moe_ffn(xg, pg, cfg).cpu().numpy(),
+                               moe.moe_ffn(x, p, cfg).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_route_tcam_on_card_equals_predict(cuda):
+    from repro_torch.core import predict, train_tree
+    from repro_torch.models.tcam_router import compile_router, route_tcam
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((2000, 16))
+    y = ((X[:, 0] > 0) * 2 + (X[:, 1] > 0.5) + 4 * (X[:, 2] > 1)).astype(
+        np.int64)
+    tree = train_tree(X, y, max_depth=8)
+    bits = compile_router(tree, device=cuda)
+    assert all(t.is_cuda for t in bits.values())
+    Xt = rng.standard_normal((5000, 16)).astype(np.float32)
+    got = route_tcam(torch.from_numpy(Xt).to(cuda), bits)
+    assert got.is_cuda
+    np.testing.assert_array_equal(got.cpu().numpy(), predict(tree, Xt))

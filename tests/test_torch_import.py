@@ -22,7 +22,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
-        "print(len(bad), bad)\n"
+        "lm = [m for m in ('repro_torch.models.lm', 'repro_torch.configs', "
+        "'repro_torch.data') if m not in sys.modules]\n"
+        "print(len(bad), bad, 'missing', lm)\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
@@ -30,6 +32,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         timeout=120, check=True,
     ).stdout
     assert out.startswith("0 "), out
+    assert out.strip().endswith("missing []"), out
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -87,6 +90,18 @@ def test_entry_points_refuse_to_default_to_the_cpu(no_cuda):
         lambda: TCAMServer(m.compiled,
                            nonideal=NonIdealSpec(drift=DriftSpec(nu=0.05))),
     ]
+    from repro_torch import init_params, lm_params_from_arrays
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_cache
+    from repro_torch.models.tcam_router import compile_router
+    cfg = get_reduced("qwen3_moe_235b_a22b")
+    calls += [
+        lambda: init_params(cfg),
+        lambda: init_params(cfg, 0, device="cuda"),
+        lambda: init_cache(cfg, 1, 8),
+        lambda: compile_router(m.compiled.tree),
+        lambda: lm_params_from_arrays({"embed": np.zeros((2, 2), np.float32)}),
+    ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -95,3 +110,4 @@ def test_entry_points_refuse_to_default_to_the_cpu(no_cuda):
         len(Xte),)
     assert ForestExecutor(forest, engine="mxu", device="cpu").infer(
         Xte).predictions.shape == (len(Xte),)
+    assert init_params(cfg, 0, device="cpu")["embed"].device.type == "cpu"
