@@ -1,5 +1,7 @@
-"""The model stack: forward / prefill / decode for the attention families
-(block kinds ``attn``/``swa`` x ``mlp``/``moe``, with the multimodal prefix).
+"""The model stack: forward / prefill / decode for every configuration:
+the attention families (block kinds ``attn``/``swa`` x ``mlp``/``moe``, with
+the multimodal prefix), the recurrent mixers (``mamba``, ``rwkv`` with its
+channel mix ``cmix``) and the encoder-decoder with cross-attention.
 
 Layers run as a Python loop over the stacked per-kind params in the order of
 ``cfg.pattern`` repeated ``cfg.n_repeat`` times; layer ``r`` of kind ``k``
@@ -7,19 +9,21 @@ reads slice ``r * occ_k + i`` of its kind's stacked leaves.
 
 Modes:
   forward     — full-sequence logits (evaluation; no cache I/O),
-  prefill     — full sequence, fills the KV caches, returns the last logits,
+  prefill     — full sequence, fills the caches, returns the last logits,
   decode_step — one token against the caches.
 
 KV caches are ring buffers (slot = pos % cache_len) with a per-slot absolute
 position table, which unifies full-window and sliding-window (SWA) decode.
-``prefill`` and ``decode_step`` write each layer's slice of the stacked
-caches in place and return the same dict.
+The recurrent kinds cache their state instead (mamba: the conv's last K-1
+inputs and the SSM state; rwkv: the token shifts and the WKV state), and an
+encoder-decoder caches each decoder layer's projected encoder keys and
+values.  ``prefill`` and ``decode_step`` write each layer's slice of the
+stacked caches in place (``copy_`` into the views) and return the same dict.
 
 On one device there is no sharding: the JAX package's ``shard`` annotations
-and its FSDP gather-at-use are no-ops there and have no counterpart here.
-The mamba and rwkv mixers, the rwkv channel mix and the encoder-decoder
-raise ``NotImplementedError`` naming the ROADMAP item that brings them; the
-training loss waits for the training slice.
+and its FSDP gather-at-use are no-ops there and have no counterpart here;
+nor has ``jax.checkpoint``, which only shapes a backward pass.  The training
+loss waits for the training slice.
 """
 from __future__ import annotations
 
@@ -31,10 +35,11 @@ from ..device import DeviceLike, resolve_device
 from .attention import decode_attention, flash_attention
 from .config import ModelConfig
 from .layers import COMPUTE_DTYPE, mlp, nonparam_norm, rms_norm, rope, rope_table
+from .mamba import init_mamba_state, mamba_mixer
 from .moe import moe_ffn
-from .params import not_ported
+from .rwkv import init_rwkv_state, rwkv_channel_mix, rwkv_mixer
 
-__all__ = ["forward", "prefill", "decode_step", "init_cache"]
+__all__ = ["forward", "prefill", "decode_step", "init_cache", "encode_audio"]
 
 
 @dataclasses.dataclass
@@ -44,6 +49,7 @@ class Ctx:
     cos: torch.Tensor | None = None
     pos: int = 0                      # decode: position of the new token
     prefix_len: int = 0
+    enc_out: torch.Tensor | None = None   # encdec: encoder activations
     causal: bool = True
 
 
@@ -63,18 +69,6 @@ def _cache_len(cfg: ModelConfig, mixer: str, max_seq: int) -> int:
     if mixer == "swa" and cfg.sliding_window > 0:
         return min(cfg.sliding_window, max_seq)
     return max_seq
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for the model parts a later slice brings, naming its item."""
-    if cfg.is_encdec:
-        raise not_ported("encdec")
-    for kind in cfg.kinds:
-        mixer, ffn = kind.split("+")
-        if mixer in ("mamba", "rwkv"):
-            raise not_ported(mixer)
-        if ffn == "cmix":
-            raise not_ported("cmix")
 
 
 # ---------------------------------------------------------------------------
@@ -120,11 +114,62 @@ def _attention_mixer(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
     return h + out
 
 
+def _cross_mixer(h, p, cfg: ModelConfig, ctx: Ctx, cache):
+    """Whisper decoder cross-attention over encoder outputs."""
+    b, s, d = h.shape
+    nh, hd = cfg.n_heads, cfg.head_dim
+    dt = h.dtype
+    x = _norm(h, p["norm_x"], cfg)
+    q = (x @ p["xwq"].to(dt)).reshape(b, s, nh, hd)
+    if ctx.mode == "decode":
+        xk, xv = cache["xk"], cache["xv"]
+        sp = torch.arange(xk.shape[1], dtype=torch.int32, device=h.device)
+        o = decode_attention(q, xk, xv, sp, 2**30)
+    else:
+        enc = ctx.enc_out
+        xk = (enc @ p["xwk"].to(dt)).reshape(b, enc.shape[1], nh, hd)
+        xv = (enc @ p["xwv"].to(dt)).reshape(b, enc.shape[1], nh, hd)
+        o = flash_attention(q, xk, xv, causal=False)
+        if ctx.mode == "prefill":
+            cache["xk"].copy_(xk)
+            cache["xv"].copy_(xv)
+    out = o.reshape(b, s, nh * hd) @ p["xwo"].to(dt)
+    return h + out
+
+
 def _apply_block(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
+    """One layer; a recurrent mixer's new state is copied into its cache
+    views (rebinding a key of ``cache`` would lose it)."""
     mixer, ffn = kind.split("+")
-    if mixer not in ("attn", "swa"):
+    if mixer in ("attn", "swa"):
+        h = _attention_mixer(kind, h, p, cfg, ctx, cache)
+    elif mixer == "mamba":
+        x = _norm(h, p["norm1"], cfg)
+        if ctx.mode == "full":
+            h = h + mamba_mixer(x, p, cfg)
+        else:
+            out, (conv, hst) = mamba_mixer(
+                x, p, cfg, state=(cache["conv"], cache["h"]),
+                return_state=True)
+            h = h + out
+            cache["conv"].copy_(conv)
+            cache["h"].copy_(hst)
+    elif mixer == "rwkv":
+        x = _norm(h, p["norm1"], cfg)
+        if ctx.mode == "full":
+            h = h + rwkv_mixer(x, p, cfg)
+        else:
+            out, (xa, sst) = rwkv_mixer(
+                x, p, cfg, state=(cache["xa"].to(x.dtype), cache["S"]),
+                return_state=True)
+            h = h + out
+            cache["xa"].copy_(xa)
+            cache["S"].copy_(sst)
+    else:
         raise ValueError(mixer)
-    h = _attention_mixer(kind, h, p, cfg, ctx, cache)
+
+    if cfg.is_encdec:
+        h = _cross_mixer(h, p, cfg, ctx, cache)
 
     x = _norm(h, p["norm2"], cfg)
     if ffn == "mlp":
@@ -134,6 +179,15 @@ def _apply_block(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
         # passed, so a model configured with router="tcam_dt" fails moe_ffn's
         # assertion; the TCAM router is reached through moe_ffn directly
         h = h + moe_ffn(x, p, cfg)
+    elif ffn == "cmix":
+        if ctx.mode == "full":
+            h = h + rwkv_channel_mix(x, p, cfg)
+        else:
+            out, xc = rwkv_channel_mix(x, p, cfg,
+                                       state=cache["xc"].to(x.dtype),
+                                       return_state=True)
+            h = h + out
+            cache["xc"].copy_(xc)
     else:
         raise ValueError(ffn)
     return h
@@ -183,13 +237,43 @@ def _rope_tables(cfg: ModelConfig, positions):
 
 
 @torch.no_grad()
-def forward(params, cfg: ModelConfig, tokens, *, frontend=None):
-    """Full-sequence activations -> logits (B, S, V) in bf16."""
-    _check_ported(cfg)
+def encode_audio(params, cfg: ModelConfig, frames):
+    """Whisper encoder: frames are stub frontend embeddings (B, S_enc, D);
+    non-causal ``attn+mlp`` blocks without cross-attention, then the
+    encoder's final norm."""
+    enc = params["encoder"]
+    if frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass frames=")
+    frames = torch.as_tensor(frames, device=enc["pos_emb"].device)
+    h = frames.to(COMPUTE_DTYPE) + enc["pos_emb"][None].to(COMPUTE_DTYPE)
+    cfg_enc = dataclasses.replace(cfg, encoder_layers=0,
+                                  n_layers=cfg.encoder_layers,
+                                  pattern=("attn+mlp",))
+    sin, cos = _rope_tables(cfg, torch.arange(h.shape[1], device=h.device))
+    ctx = Ctx(mode="full", sin=sin, cos=cos, causal=False)
+    h = _run_blocks(cfg_enc, enc["blocks"], None, h, ctx)
+    return _norm(h, enc["final_norm"], cfg)
+
+
+def _start(params, cfg: ModelConfig, tokens, frontend, frames):
+    """The encoder's output (encoder-decoder only) and the embedded tokens
+    with the decoder's positions added."""
+    enc_out = encode_audio(params, cfg, frames) if cfg.is_encdec else None
     h = _embed(params, cfg, tokens, frontend)
+    if cfg.is_encdec:
+        h = h + params["dec_pos_emb"][None, :h.shape[1]].to(h.dtype)
+    return enc_out, h
+
+
+@torch.no_grad()
+def forward(params, cfg: ModelConfig, tokens, *, frontend=None, frames=None):
+    """Full-sequence activations -> logits (B, S, V) in bf16; an
+    encoder-decoder takes its encoder's input as ``frames``."""
+    enc_out, h = _start(params, cfg, tokens, frontend, frames)
     s = h.shape[1]
     sin, cos = _rope_tables(cfg, torch.arange(s, device=h.device))
-    ctx = Ctx(mode="full", sin=sin, cos=cos, prefix_len=cfg.frontend_tokens)
+    ctx = Ctx(mode="full", sin=sin, cos=cos, prefix_len=cfg.frontend_tokens,
+              enc_out=enc_out)
     h = _run_blocks(cfg, params["blocks"], None, h, ctx)
     h = _norm(h, params["final_norm"], cfg)
     return _logits(params, cfg, h)
@@ -199,34 +283,54 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                dtype: torch.dtype = COMPUTE_DTYPE,
                device: DeviceLike = None) -> dict:
     """Stacked per-kind decode caches on ``device`` (default: the card)."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     caches = {}
-    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    nh, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def stack(t, occ):
+        return t[None].repeat(occ, *(1,) * t.dim())
+
     for kind in cfg.kinds:
         occ = len(cfg.kind_positions(kind)) * cfg.n_repeat
-        clen = _cache_len(cfg, kind.split("+")[0], max_seq)
-        caches[kind] = {
-            "k": torch.zeros((occ, batch, clen, kv, hd), dtype=dtype,
-                             device=dev),
-            "v": torch.zeros((occ, batch, clen, kv, hd), dtype=dtype,
-                             device=dev),
-            "slot_pos": torch.full((occ, clen), -1, dtype=torch.int32,
-                                   device=dev),
-        }
+        mixer, ffn = kind.split("+")
+        leaves: dict = {}
+        if mixer in ("attn", "swa"):
+            clen = _cache_len(cfg, mixer, max_seq)
+            leaves["k"] = torch.zeros((occ, batch, clen, kv, hd), dtype=dtype,
+                                      device=dev)
+            leaves["v"] = torch.zeros((occ, batch, clen, kv, hd), dtype=dtype,
+                                      device=dev)
+            leaves["slot_pos"] = torch.full((occ, clen), -1,
+                                            dtype=torch.int32, device=dev)
+        elif mixer == "mamba":
+            conv, hst = init_mamba_state(cfg, batch, dtype, device=dev)
+            leaves["conv"], leaves["h"] = stack(conv, occ), stack(hst, occ)
+        elif mixer == "rwkv":
+            xa, sst, xc = init_rwkv_state(cfg, batch, dtype, device=dev)
+            leaves["xa"], leaves["S"] = stack(xa, occ), stack(sst, occ)
+            leaves["xc"] = stack(xc, occ)
+        if ffn == "cmix" and "xc" not in leaves:
+            leaves["xc"] = torch.zeros((occ, batch, cfg.d_model), dtype=dtype,
+                                       device=dev)
+        if cfg.is_encdec:
+            for name in ("xk", "xv"):
+                leaves[name] = torch.zeros(
+                    (occ, batch, cfg.encoder_seq, nh, hd), dtype=dtype,
+                    device=dev)
+        caches[kind] = leaves
     return caches
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, tokens, caches, *, frontend=None):
+def prefill(params, cfg: ModelConfig, tokens, caches, *, frontend=None,
+            frames=None):
     """Full-sequence forward that fills the caches (in place); returns
     (last-token logits (B, 1, V), caches)."""
-    _check_ported(cfg)
-    h = _embed(params, cfg, tokens, frontend)
+    enc_out, h = _start(params, cfg, tokens, frontend, frames)
     s = h.shape[1]
     sin, cos = _rope_tables(cfg, torch.arange(s, device=h.device))
     ctx = Ctx(mode="prefill", sin=sin, cos=cos,
-              prefix_len=cfg.frontend_tokens)
+              prefix_len=cfg.frontend_tokens, enc_out=enc_out)
     h = _run_blocks(cfg, params["blocks"], caches, h, ctx)
     h = _norm(h, params["final_norm"], cfg)
     return _logits(params, cfg, h[:, -1:]), caches
@@ -236,9 +340,10 @@ def prefill(params, cfg: ModelConfig, tokens, caches, *, frontend=None):
 def decode_step(params, cfg: ModelConfig, token, caches, pos: int):
     """One decode step: token (B, 1) int, ``pos`` the new token's position
     -> (logits (B, 1, V), caches updated in place)."""
-    _check_ported(cfg)
     pos = int(pos)
     h = _embed(params, cfg, token)
+    if cfg.is_encdec:
+        h = h + params["dec_pos_emb"][None, pos:pos + 1].to(h.dtype)
     # arange, not a tensor from a list: no host-to-device copy in the step
     sin, cos = _rope_tables(cfg, torch.arange(pos, pos + 1, device=h.device))
     ctx = Ctx(mode="decode", sin=sin, cos=cos, pos=pos)

@@ -1,0 +1,129 @@
+"""Mamba selective-SSM mixer (jamba's attention-free layers).
+
+Prefill and the full forward run a *chunked* selective scan: the sequence is
+processed in chunks carrying the (B, d_inner, N) state; inside a chunk the
+recurrence is a plain time loop.  The chunk bounds the materialized
+(B, chunk, d_inner, N) discretized tensors — the full-sequence
+(B, S, d_inner, N) form would be tens of GB at 4k+ sequence lengths.  The
+chunk is the largest divisor of S that is <= ``CHUNK``, so a prime S runs
+chunks of one token.
+
+The conv accumulates in f32 and the scan runs in f32; both return the
+input's dtype.  Decode is the single-token state update.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..device import DeviceLike, resolve_device
+from .attention import _fit
+from .config import ModelConfig
+
+__all__ = ["mamba_mixer", "mamba_decode", "init_mamba_state", "CHUNK"]
+
+CHUNK = 256
+
+
+def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 prev: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal conv along seq.  x (B,S,Di), w (Di,K), b (Di,);
+    prev (B,K-1,Di) carries context across prefill->decode."""
+    bsz, s, di = x.shape
+    k = w.shape[1]
+    if prev is None:
+        prev = x.new_zeros((bsz, k - 1, di))
+    xp = torch.cat([prev, x], dim=1)                        # (B, S+K-1, Di)
+    out = torch.zeros((bsz, s, di), dtype=torch.float32, device=x.device)
+    for i in range(k):
+        out = out + xp[:, i:i + s].float() * w[:, i].float()
+    return (out + b.float()).to(x.dtype)
+
+
+def _ssm_chunk(h0: torch.Tensor, dA: torch.Tensor, dBx: torch.Tensor,
+               cmat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the recurrence h_t = dA_t * h_{t-1} + dBx_t.
+
+    h0 (B, Di, N); dA/dBx (B, C, Di, N); cmat (B, C, N).
+    Returns (h_final, y (B, C, Di))."""
+    h = h0
+    ys = []
+    for t in range(dA.shape[1]):
+        h = dA[:, t] * h + dBx[:, t]                        # (B, Di, N)
+        ys.append((h @ cmat[:, t, :, None])[..., 0])        # (B, Di)
+    return h, torch.stack(ys, dim=1)
+
+
+def _ssm(x: torch.Tensor, p: dict, cfg: ModelConfig,
+         h0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan over the full sequence in chunks.
+    x (B, S, Di) post-conv activations; returns (y (B,S,Di), h_final)."""
+    bsz, s, di = x.shape
+    n = cfg.ssm_state
+    dtr = cfg.dt_rank
+    xf = x.float()
+
+    xdb = xf @ p["x_proj"].float()
+    dt, bmat, cmat = torch.split(xdb, [dtr, n, n], dim=-1)
+    dt = F.softplus(dt @ p["dt_w"].float() + p["dt_b"].float())  # (B, S, Di)
+    a = -torch.exp(p["A_log"].float())                             # (Di, N)
+
+    h = (torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
+         if h0 is None else h0)
+    chunk = _fit(s, CHUNK)
+    ys = []
+    for c0 in range(0, s, chunk):
+        dt_c, b_c, c_c, x_c = (t[:, c0:c0 + chunk]
+                               for t in (dt, bmat, cmat, xf))
+        da = torch.exp(dt_c[..., None] * a)                 # (B,C,Di,N)
+        dbx = dt_c[..., None] * b_c[:, :, None, :] * x_c[..., None]
+        h, y = _ssm_chunk(h, da, dbx, c_c)
+        ys.append(y)
+        del da, dbx
+    y = torch.cat(ys, dim=1)
+    y = y + xf * p["Dskip"].float()
+    return y.to(x.dtype), h
+
+
+def mamba_mixer(
+    x: torch.Tensor,              # (B, S, D) post-norm residual stream
+    p: dict,
+    cfg: ModelConfig,
+    state: tuple | None = None,   # (conv_prev (B,K-1,Di), h (B,Di,N))
+    return_state: bool = False,
+):
+    dt = x.dtype
+    xz = x @ p["in_proj"].to(dt)
+    xin, z = xz.chunk(2, dim=-1)                            # (B,S,Di) each
+    conv_prev = state[0] if state is not None else None
+    h0 = state[1] if state is not None else None
+    xc = F.silu(_conv_causal(xin, p["conv_w"], p["conv_b"], conv_prev))
+    y, h = _ssm(xc, p, cfg, h0)
+    y = y * F.silu(z)
+    out = y @ p["out_proj"].to(dt)
+    if return_state:
+        k = cfg.ssm_conv
+        if conv_prev is None:
+            conv_prev = xin.new_zeros((x.shape[0], k - 1, xin.shape[-1]))
+        hist = torch.cat([conv_prev, xin], dim=1)           # (B, S+K-1, Di)
+        new_conv = hist[:, hist.shape[1] - (k - 1):]
+        return out, (new_conv, h)
+    return out
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device: DeviceLike = None):
+    """Zero (conv (B, K-1, Di) in ``dtype``, h (B, Di, N) f32) on ``device``
+    (default: the card)."""
+    device = resolve_device(device)
+    di, n, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    return (
+        torch.zeros((batch, k - 1, di), dtype=dtype, device=device),
+        torch.zeros((batch, di, n), dtype=torch.float32, device=device),
+    )
+
+
+def mamba_decode(x: torch.Tensor, p: dict, cfg: ModelConfig, state: tuple):
+    """Single-token decode: x (B, 1, D) -> (out (B,1,D), new state)."""
+    return mamba_mixer(x, p, cfg, state=state, return_state=True)

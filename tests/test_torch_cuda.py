@@ -33,6 +33,11 @@ tensor margins within their tolerance of theirs (rows due equal), and a
 drifting server that launches the bitplane kernel on a grid drift filled
 with CELL_MM and the packed kernel after a full scrub, with every ``*_ref``
 function of the port patched to raise.
+
+The LM path on the card against the same port on the CPU: forward, prefill
+and decode_step of the reduced attention, MoE, mamba-hybrid, rwkv and
+encoder-decoder configs, the mamba and rwkv mixers with carried state, the
+MoE layer and the TCAM router.
 """
 import numpy as np
 import pytest
@@ -931,11 +936,13 @@ def _to(tree, dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "gemma_7b"])
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "gemma_7b",
+                                  "jamba_v01_52b", "rwkv6_1p6b",
+                                  "whisper_small"])
 def test_lm_on_card_equals_cpu(cuda, arch):
     """forward, prefill and decode_step of a reduced config on the card
-    equal the port on the CPU with the same weights and tokens; the card's
-    own init runs there too."""
+    equal the port on the CPU with the same weights and tokens (whisper's
+    frames too); the card's own init runs there too."""
     from repro_torch.configs import get_reduced
     from repro_torch.data import make_batch
     from repro_torch.models import (decode_step, forward, init_cache,
@@ -947,21 +954,72 @@ def test_lm_on_card_equals_cpu(cuda, arch):
     mine = init_params(cfg, 0, device=cuda)
     assert param_count(mine) == param_count(p_cpu)
     assert all(v.is_cuda for v in mine["blocks"][cfg.pattern[0]].values())
-    toks = make_batch(cfg, 2, 17, step=0)["tokens"]
+    batch = make_batch(cfg, 2, 17, step=0)
+    toks = batch["tokens"]
+    kw = {"frames": batch["frames"]} if cfg.is_encdec else {}
     outs = []
     for dev, p in ((cpu, p_cpu), (cuda, p_gpu)):
-        full = forward(p, cfg, toks)
+        full = forward(p, cfg, toks, **kw)
         caches = init_cache(cfg, 2, 24, device=dev)
-        last, caches = prefill(p, cfg, toks[:, :-1], caches)
+        last, caches = prefill(p, cfg, toks[:, :-1], caches, **kw)
         dec, caches = decode_step(p, cfg, toks[:, -1:], caches, 16)
         assert full.device.type == dev.type and dec.device.type == dev.type
         outs.append([t.float().cpu().numpy() for t in (full, last, dec)]
-                    + [caches[cfg.pattern[0]]["slot_pos"].cpu().numpy()])
+                    + [c["slot_pos"].cpu().numpy() for c in caches.values()
+                       if "slot_pos" in c])
     (want, got) = outs
     for g, w in zip(got[:3], want[:3]):
         assert np.isfinite(g).all()
         np.testing.assert_allclose(g, w, **LM_BF16)
-    np.testing.assert_array_equal(got[3], want[3])
+    assert len(got) == len(want)
+    for g, w in zip(got[3:], want[3:]):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mamba+mlp", "rwkv+cmix"])
+def test_recurrent_mixers_on_card_equal_cpu(cuda, kind):
+    """The chunked mixer (and rwkv's channel mix) of one reduced layer on
+    the card, f32, with carried state, against the same call on the CPU,
+    at the WKV tolerance of the CPU parity tests (1e-4)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_params, mamba, rwkv
+    arch = "jamba_v01_52b" if kind == "mamba+mlp" else "rwkv6_1p6b"
+    cfg = get_reduced(arch)
+    p = {k: v[0] for k, v in init_params(
+        cfg, 5, device="cpu")["blocks"][kind].items()}
+    pg = _to(p, cuda)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal(
+        (2, 40, cfg.d_model)).astype(np.float32))
+    if kind == "mamba+mlp":
+        state = (torch.from_numpy(rng.standard_normal(
+            (2, cfg.ssm_conv - 1, cfg.d_inner)).astype(np.float32)),
+            torch.from_numpy(rng.standard_normal(
+                (2, cfg.d_inner, cfg.ssm_state)).astype(np.float32)))
+        calls = [lambda x, p, st: mamba.mamba_mixer(x, p, cfg, state=st,
+                                                    return_state=True)]
+    else:
+        h, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+        state = (torch.from_numpy(rng.standard_normal(
+            (2, cfg.d_model)).astype(np.float32)),
+            torch.from_numpy(rng.standard_normal(
+                (2, h, hd, hd)).astype(np.float32)))
+        calls = [lambda x, p, st: rwkv.rwkv_mixer(x, p, cfg, state=st,
+                                                  return_state=True),
+                 lambda x, p, st: rwkv.rwkv_channel_mix(
+                     x, p, cfg, state=st[0], return_state=True)]
+    for call in calls:
+        want = call(x, p, state)
+        got = call(x.to(cuda), pg, tuple(t.to(cuda) for t in state))
+        flat_w = [want[0], *(want[1] if isinstance(want[1], tuple)
+                             else (want[1],))]
+        flat_g = [got[0], *(got[1] if isinstance(got[1], tuple)
+                            else (got[1],))]
+        for g, w in zip(flat_g, flat_w):
+            assert g.is_cuda
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
+                                       rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu

@@ -11,9 +11,18 @@ slice brings.  The JAX package's weights are carried across by
 
 Tolerances, fixed before the comparison:
 
-- f32 modules (norms, RoPE, MLP, attention, MoE outputs with f32 inputs):
-  ``rtol=atol=1e-5`` (another summation order; XLA's and PyTorch's ``exp``
-  and ``pow`` may differ by an ulp);
+- f32 modules (norms, RoPE, MLP, attention, MoE outputs with f32 inputs,
+  mamba's conv and mixer, the channel mix): ``rtol=atol=1e-5`` (another
+  summation order; XLA's and PyTorch's ``exp`` and ``pow`` may differ by an
+  ulp);
+- rwkv's chunked mixer and one WKV chunk in f32: ``rtol=atol=1e-4``: the
+  chunked form multiplies by factors up to e^{±44}, so an ulp of the
+  cumulative log-decay (|L| up to 44) moves a factor by about 4e-6
+  relative, and a product of two such factors by twice that;
+- the recurrent mixers with bf16 inputs and weights cast to bf16:
+  ``rtol=atol=5e-2`` (another rounding order of bf16 products);
+- chunked against stepwise in the port alone: the JAX tests' own
+  tolerances, mamba 2e-3 and rwkv 5e-3, the channel mix 1e-5;
 - decode attention over a bf16 cache, whose output is rounded to bf16:
   ``rtol=atol=1e-2`` (a bf16 ulp near 1 is 2**-7);
 - integers (capacities, ranks within an expert, chosen experts, routes,
@@ -31,8 +40,10 @@ from repro.core import predict as jax_predict
 from repro.core import train_tree as jax_train_tree
 from repro.models import attention as JA
 from repro.models import layers as JL
+from repro.models import mamba as JMB
 from repro.models import moe as JM
 from repro.models import params as JP
+from repro.models import rwkv as JRW
 from repro.models import tcam_router as JR
 from repro.models.config import ModelConfig as JaxModelConfig
 from repro_torch.configs import get_reduced
@@ -40,15 +51,20 @@ from repro_torch.convert import lm_params_from_arrays
 from repro_torch.core import predict, train_tree
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
+from repro_torch.models import mamba as TMB
 from repro_torch.models import moe as TM
 from repro_torch.models import params as TP
+from repro_torch.models import rwkv as TRW
 from repro_torch.models import tcam_router as TR
 from repro_torch.models.config import ModelConfig
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=1e-2, atol=1e-2)
+WKV_F32 = dict(rtol=1e-4, atol=1e-4)
+MIX_BF16 = dict(rtol=5e-2, atol=5e-2)
 ATTN_ARCHS = ("olmo_1b", "gemma_7b", "phi3_medium_14b", "h2o_danube_1p8b",
               "paligemma_3b", "dbrx_132b", "qwen3_moe_235b_a22b")
+ARCHS = ATTN_ARCHS + ("jamba_v01_52b", "rwkv6_1p6b", "whisper_small")
 CPU = torch.device("cpu")
 
 
@@ -64,6 +80,45 @@ def _np(x) -> np.ndarray:
 
 def _tree_np(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+# norms (zero-initialised scales) and mamba's zero-initialised conv bias
+_SMALL = {"norm1", "norm2", "norm_x", "q_norm", "k_norm", "final_norm",
+          "ln_x", "conv_b"}
+
+
+def _draw(name: str, shape: tuple, rng) -> np.ndarray:
+    """Seeded values for leaf ``name``, scaled about like its init."""
+    if name == "A_log":
+        return np.log(rng.uniform(0.5, shape[-1] + 1.0, shape))
+    if name == "dt_b":      # softplus(dt_b) log-uniform on [1e-3, 1e-1]
+        dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), shape))
+        return np.log(np.expm1(dt))
+    if name == "w_base":
+        return rng.uniform(-6.0, 1.0, shape)
+    if name in ("mu", "cm_mu"):
+        return rng.uniform(0.0, 1.0, shape)
+    n = rng.standard_normal(shape)
+    if name in _SMALL:
+        return 0.2 * n
+    if name == "Dskip":
+        return 1.0 + 0.5 * n
+    if name == "u":
+        return 0.5 * n
+    if name in ("embed", "pos_emb", "dec_pos_emb"):
+        return 0.02 * n
+    # dense weights (w_lora_b too, zero at init): std 1/sqrt(fan_in)
+    fan_in = shape[-1] if name == "conv_w" else shape[-2]
+    return n / np.sqrt(fan_in)
+
+
+def randomized(tree: dict, rng) -> dict:
+    """The param tree (nested dicts, stacked or not) with every leaf
+    replaced by f32 numpy draws from ``rng``, zero-initialised leaves
+    included."""
+    return {k: randomized(v, rng) if isinstance(v, dict)
+            else _draw(k, np.shape(v), rng).astype(np.float32)
+            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -331,13 +386,240 @@ def test_router_in_moe_layer_equals_jax():
 
 
 # ---------------------------------------------------------------------------
-# params, configs and what a later slice brings
+# recurrent mixers: mamba, rwkv and the channel mix
+# ---------------------------------------------------------------------------
+def _mix_cfgs(kind):
+    """One layer of the reduced jamba (mamba) or rwkv6 config."""
+    arch = "jamba_v01_52b" if kind == "mamba+mlp" else "rwkv6_1p6b"
+    return get_reduced(arch), jax_get_reduced(arch)
+
+
+def _mix_block(kind, seed):
+    """One layer's randomized leaves: (numpy, JAX, port)."""
+    _, jcfg = _mix_cfgs(kind)
+    jp = jax.tree.map(lambda a: np.asarray(a[0]),
+                      JP.init_params(jcfg, jax.random.PRNGKey(0))
+                      ["blocks"][kind])
+    leaves = randomized(jp, np.random.default_rng(seed))
+    return (leaves, jax.tree.map(jnp.asarray, leaves),
+            lm_params_from_arrays(leaves, device=CPU))
+
+
+DTYPES = {"float32": (torch.float32, jnp.float32, F32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, MIX_BF16)}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    tdt, jdt, _ = DTYPES[dtype]
+    return _t(a).to(tdt), jnp.asarray(a).astype(jdt)
+
+
+def _close(got, want, tol):
+    if isinstance(got, tuple):
+        for g, w in zip(got, want):
+            _close(g, w, tol)
+        return
+    assert got.shape == tuple(want.shape)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("with_prev", [False, True])
+def test_conv_causal_equals_jax(dtype, with_prev):
+    """The depthwise causal conv accumulates in f32 and returns the input's
+    dtype, with and without the carried K-1 inputs."""
+    rng = np.random.default_rng(10)
+    x, xj = _pair(rng.standard_normal((2, 9, 24)).astype(np.float32), dtype)
+    w = rng.standard_normal((24, 4)).astype(np.float32) * 0.5
+    b = rng.standard_normal(24).astype(np.float32) * 0.2
+    prev = prevj = None
+    if with_prev:
+        prev, prevj = _pair(rng.standard_normal((2, 3, 24)).astype(
+            np.float32), dtype)
+    got = TMB._conv_causal(x, _t(w), _t(b), prev)
+    want = JMB._conv_causal(xj, jnp.asarray(w), jnp.asarray(b), prevj)
+    assert got.dtype == x.dtype
+    _close(got, want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mamba_mixer_equals_jax(dtype, with_state):
+    """mamba_mixer at the reduced jamba width on randomized leaves; with a
+    carried (conv, h) state it also returns the new state."""
+    cfg, jcfg = _mix_cfgs("mamba+mlp")
+    _, jp, tp = _mix_block("mamba+mlp", 11)
+    rng = np.random.default_rng(12)
+    x, xj = _pair(rng.standard_normal((2, 12, cfg.d_model)).astype(
+        np.float32), dtype)
+    if not with_state:
+        got = TMB.mamba_mixer(x, tp, cfg)
+        want = JMB.mamba_mixer(xj, jp, jcfg)
+        assert got.dtype == x.dtype
+        _close(got, want, DTYPES[dtype][2])
+        return
+    conv, convj = _pair(rng.standard_normal(
+        (2, cfg.ssm_conv - 1, cfg.d_inner)).astype(np.float32), dtype)
+    h0 = rng.standard_normal((2, cfg.d_inner, cfg.ssm_state)).astype(
+        np.float32) * 0.3
+    got = TMB.mamba_mixer(x, tp, cfg, state=(conv, _t(h0)),
+                          return_state=True)
+    want = JMB.mamba_mixer(xj, jp, jcfg, state=(convj, jnp.asarray(h0)),
+                           return_state=True)
+    assert got[1][0].dtype == x.dtype and got[1][1].dtype == torch.float32
+    _close(got[0], want[0], DTYPES[dtype][2])
+    _close(got[1][0], want[1][0], DTYPES[dtype][2])
+    # the SSM state is f32 on both sides; from bf16 inputs it inherits
+    # their rounding, so it is held at the dtype's tolerance
+    _close(got[1][1], want[1][1], DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("c", [16, 7])
+def test_wkv_chunk_equals_jax(c):
+    """One chunk with a decay whose cumulative log reaches the CLIP range."""
+    rng = np.random.default_rng(13)
+    h, hd = 2, 8
+    r, k, v = (rng.standard_normal((2, h, c, hd)).astype(np.float32)
+               for _ in range(3))
+    logw = -np.exp(rng.uniform(-8.0, 1.0, (2, h, c, hd))).astype(np.float32)
+    u = rng.standard_normal((h, hd)).astype(np.float32) * 0.5
+    s_in = rng.standard_normal((2, h, hd, hd)).astype(np.float32)
+    got = TRW._wkv_chunk(*map(_t, (s_in, r, k, v, logw, u)))
+    want = JRW._wkv_chunk(*map(jnp.asarray, (s_in, r, k, v, logw, u)))
+    _close(got, want, WKV_F32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv_mixer_equals_jax(dtype, with_state):
+    """rwkv_mixer at the reduced rwkv6 width over 40 tokens (chunks of 8)
+    on randomized leaves, with and without a carried (x_prev, S) state;
+    f32 at the WKV tolerance (see the module docstring)."""
+    cfg, jcfg = _mix_cfgs("rwkv+cmix")
+    _, jp, tp = _mix_block("rwkv+cmix", 14)
+    rng = np.random.default_rng(15)
+    x, xj = _pair(rng.standard_normal((2, 40, cfg.d_model)).astype(
+        np.float32), dtype)
+    tol = WKV_F32 if dtype == "float32" else MIX_BF16
+    if not with_state:
+        got = TRW.rwkv_mixer(x, tp, cfg)
+        want = JRW.rwkv_mixer(xj, jp, jcfg)
+        assert got.dtype == x.dtype
+        _close(got, want, tol)
+        return
+    xa, xaj = _pair(rng.standard_normal((2, cfg.d_model)).astype(
+        np.float32), dtype)
+    h, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+    s0 = rng.standard_normal((2, h, hd, hd)).astype(np.float32)
+    got = TRW.rwkv_mixer(x, tp, cfg, state=(xa, _t(s0)), return_state=True)
+    want = JRW.rwkv_mixer(xj, jp, jcfg, state=(xaj, jnp.asarray(s0)),
+                          return_state=True)
+    assert got[1][1].dtype == torch.float32
+    _close(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv_channel_mix_equals_jax(dtype, with_state):
+    cfg, jcfg = _mix_cfgs("rwkv+cmix")
+    _, jp, tp = _mix_block("rwkv+cmix", 16)
+    rng = np.random.default_rng(17)
+    x, xj = _pair(rng.standard_normal((2, 9, cfg.d_model)).astype(
+        np.float32), dtype)
+    tol = DTYPES[dtype][2]
+    if not with_state:
+        got = TRW.rwkv_channel_mix(x, tp, cfg)
+        _close(got, JRW.rwkv_channel_mix(xj, jp, jcfg), tol)
+        return
+    xc, xcj = _pair(rng.standard_normal((2, cfg.d_model)).astype(
+        np.float32), dtype)
+    got = TRW.rwkv_channel_mix(x, tp, cfg, state=xc, return_state=True)
+    want = JRW.rwkv_channel_mix(xj, jp, jcfg, state=xcj, return_state=True)
+    _close(got, want, tol)
+
+
+def _small_mix_cfg(kind):
+    """``test_models.py``'s one-layer configs of the stepwise checks."""
+    if kind == "mamba+mlp":
+        return ModelConfig(name="t", family="ssm", n_layers=1, d_model=32,
+                           n_heads=4, n_kv_heads=4, head_dim=8, d_ff=64,
+                           vocab_size=64, pattern=(kind,), ssm_state=4)
+    return ModelConfig(name="t", family="ssm", n_layers=1, d_model=32,
+                       n_heads=2, n_kv_heads=2, head_dim=16, d_ff=64,
+                       vocab_size=64, pattern=(kind,), rwkv_head_dim=16,
+                       rope_theta=0.0)
+
+
+def _small_block(cfg, seed):
+    p = {k: v[0] for k, v in TP.init_params(
+        cfg, seed, device=CPU)["blocks"][cfg.pattern[0]].items()}
+    return lm_params_from_arrays(
+        randomized({k: v.numpy() for k, v in p.items()},
+                   np.random.default_rng(seed)), device=CPU)
+
+
+def _stepwise(mixer, x, p, cfg, state):
+    outs = []
+    for t in range(x.shape[1]):
+        o, state = mixer(x[:, t:t + 1], p, cfg, state=state,
+                         return_state=True)
+        outs.append(o)
+    return torch.cat(outs, dim=1), state
+
+
+@pytest.mark.parametrize("s", [2 * TMB.CHUNK, 263])
+def test_mamba_chunked_equals_stepwise(s):
+    """The chunked selective scan (chunks of 256, or of 1 at a prime
+    length) equals the token-by-token recurrence, state included."""
+    cfg = _small_mix_cfg("mamba+mlp")
+    p = _small_block(cfg, 0)
+    x = _t(np.random.default_rng(0).standard_normal((2, s, 32)).astype(
+        np.float32))
+    full, (conv, h) = TMB.mamba_mixer(x, p, cfg, return_state=True)
+    step, (conv_s, h_s) = _stepwise(
+        TMB.mamba_mixer, x, p, cfg, TMB.init_mamba_state(cfg, 2, torch.float32,
+                                                         device=CPU))
+    tol = dict(rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(_np(full), _np(step), **tol)
+    np.testing.assert_allclose(_np(h), _np(h_s), **tol)
+    # the last K-1 projected inputs (one product over S rows, or S of one)
+    np.testing.assert_allclose(_np(conv), _np(conv_s), **tol)
+
+
+@pytest.mark.parametrize("s", [2 * TRW.CHUNK, 37])
+def test_rwkv_chunked_equals_stepwise(s):
+    cfg = _small_mix_cfg("rwkv+cmix")
+    p = _small_block(cfg, 1)
+    x = _t(0.5 * np.random.default_rng(1).standard_normal((2, s, 32)).astype(
+        np.float32))
+    full, (xa, sst) = TRW.rwkv_mixer(x, p, cfg, return_state=True)
+    xa0, s0, _ = TRW.init_rwkv_state(cfg, 2, torch.float32, device=CPU)
+    step, (xa_s, sst_s) = _stepwise(TRW.rwkv_mixer, x, p, cfg, (xa0, s0))
+    tol = dict(rtol=5e-3, atol=5e-3)
+    np.testing.assert_allclose(_np(full), _np(step), **tol)
+    np.testing.assert_allclose(_np(sst), _np(sst_s), **tol)
+    assert torch.equal(xa, xa_s)
+
+
+def test_rwkv_channel_mix_stepwise():
+    cfg = _small_mix_cfg("rwkv+cmix")
+    p = _small_block(cfg, 2)
+    x = _t(np.random.default_rng(2).standard_normal((2, 8, 32)).astype(
+        np.float32))
+    full = TRW.rwkv_channel_mix(x, p, cfg)
+    step, _ = _stepwise(TRW.rwkv_channel_mix, x, p, cfg,
+                        torch.zeros((2, 32)))
+    np.testing.assert_allclose(_np(full), _np(step), **F32)
+
+
+# ---------------------------------------------------------------------------
+# params and configs
 # ---------------------------------------------------------------------------
 def _shapes(tree):
     return jax.tree.map(lambda a: tuple(a.shape), tree)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_init_params_tree_equals_jax(arch):
     cfg, jcfg = get_reduced(arch), jax_get_reduced(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
@@ -355,27 +637,21 @@ def test_init_params_tree_equals_jax(arch):
     assert not torch.equal(tp["embed"], TP.init_params(cfg, 1,
                                                        device=CPU)["embed"])
     assert float(tp["final_norm"].abs().max()) == 0.0
-
-
-@pytest.mark.parametrize("arch,item", [
-    ("jamba_v01_52b", "ROADMAP Queue A 1"),
-    ("rwkv6_1p6b", "ROADMAP Queue A 2"),
-    ("whisper_small", "ROADMAP Queue A 3"),
-])
-def test_later_families_raise_naming_their_roadmap_item(arch, item):
-    from repro_torch.models import decode_step, forward, init_cache, prefill
-    cfg = get_reduced(arch)
-    calls = [
-        lambda: TP.init_params(cfg, 0, device=CPU),
-        lambda: TP.param_logical_axes(cfg),
-        lambda: init_cache(cfg, 1, 8, device=CPU),
-        lambda: forward({}, cfg, np.zeros((1, 4), np.int32)),
-        lambda: prefill({}, cfg, np.zeros((1, 4), np.int32), {}),
-        lambda: decode_step({}, cfg, np.zeros((1, 1), np.int32), {}, 0),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    # the deterministic inits are the JAX package's; dt_b's softplus lies
+    # in [1e-3, 1e-1]
+    for kind, leaves in jp["blocks"].items():
+        for name in ("A_log", "w_base", "mu", "cm_mu", "Dskip"):
+            if name in leaves:
+                np.testing.assert_allclose(tp["blocks"][kind][name].numpy(),
+                                           np.asarray(leaves[name]), **F32)
+        if "dt_b" in leaves:
+            dt = torch.nn.functional.softplus(tp["blocks"][kind]["dt_b"])
+            assert float(dt.min()) >= 1e-3 * (1 - 1e-5)
+            assert float(dt.max()) <= 1e-1 * (1 + 1e-5)
+    if cfg.is_encdec:
+        assert TP.kind_specs(cfg, "attn+mlp", with_cross=True).keys() > {
+            "norm_x", "xwq", "xwk", "xwv", "xwo"}
+        assert float(tp["encoder"]["final_norm"].abs().max()) == 0.0
 
 
 def test_lm_params_from_arrays_keeps_values_dtypes_and_layout():

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the LM serving path's time goes on the card: one prefill of
-``chip_smoke.LM_BATCH`` x ``chip_smoke.LM_PROMPT`` tokens and
-``DECODE_STEPS`` greedy decode steps of ``chip_smoke.py``'s LM configuration
-(qwen3-moe-235b-a22b at every published width, cut to ``LM_LAYERS``), each
-traced by ``torch.profiler`` after a warm-up.  Prints, per mode, the wall
-time, the device's busy time and idle share, and the ``TOP_ROWS`` operators
-by device time, most first.  GPU only; about a minute.
+``chip_smoke.LM_BATCH`` x prompt tokens and ``DECODE_STEPS`` greedy decode
+steps of one of ``chip_smoke.py``'s LM configurations at every published
+width (by default phase 9's qwen3-moe-235b-a22b cut to ``LM_LAYERS``; or a
+configuration of phase 10's ``LM_FAMILIES``, at its depth and prompt),
+each traced by ``torch.profiler`` after a warm-up.  Prints, per mode, the
+wall time, the device's busy time and idle share, and the ``TOP_ROWS``
+operators by device time, most first.  GPU only; about a minute per
+configuration.
 
-    python3 tools/lm_profile.py
+    python3 tools/lm_profile.py [arch ...]
 """
 from __future__ import annotations
 
@@ -65,28 +67,34 @@ def traced(fn) -> dict:
     }
 
 
-def main() -> int:
+def profile_arch(arch: str) -> dict:
     import torch
-    if not torch.cuda.is_available():
-        print("lm_profile: needs a GPU", file=sys.stderr)
-        return 2
     import chip_smoke as cs
     from repro_torch.configs import get_config
     from repro_torch.data import make_batch
     from repro_torch.models import decode_step, init_cache, init_params, prefill
 
-    batch, prompt = cs.LM_BATCH, cs.LM_PROMPT
+    layers, prompt = cs.LM_FAMILIES.get(arch, (cs.LM_LAYERS, cs.LM_PROMPT))
+    batch = cs.LM_BATCH
     dev = torch.device("cuda")
-    print(cs.card_line(), flush=True)
-    cfg = dataclasses.replace(get_config(cs.LM_ARCH), n_layers=cs.LM_LAYERS)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     params = init_params(cfg, cs.LM_SEED, device=dev)
-    toks = torch.from_numpy(make_batch(cfg, batch, prompt, step=1,
-                                       seed=cs.LM_SEED)["tokens"]).to(dev)
-    caches = init_cache(cfg, batch, prompt + DECODE_STEPS + 1,
-                        device=dev)
-    logits, _ = prefill(params, cfg, toks, caches)            # warm-up
+    b = make_batch(cfg, batch, prompt, step=1, seed=cs.LM_SEED)
+    toks = torch.from_numpy(b["tokens"]).to(dev)
+    kw = ({"frames": torch.from_numpy(b["frames"]).to(dev)}
+          if cfg.is_encdec else {})
+
+    def fresh():
+        # a prefill continues a recurrent state it finds in the caches
+        return init_cache(cfg, batch, prompt + DECODE_STEPS + 1, device=dev)
+
+    logits, caches = prefill(params, cfg, toks, fresh(), **kw)   # warm-up
     decode_step(params, cfg, logits.argmax(-1), caches, prompt)
-    out = {"prefill": traced(lambda: prefill(params, cfg, toks, caches))}
+    caches = fresh()
+    out = {"prefill": traced(lambda: prefill(params, cfg, toks, caches,
+                                             **kw))}
     tok = logits.argmax(-1)
 
     def steps():
@@ -96,8 +104,23 @@ def main() -> int:
             tok = lg.argmax(-1)
     out["decode"] = traced(steps)
     out["decode"]["steps"] = DECODE_STEPS
-    for mode, rec in out.items():
-        print(json.dumps({mode: rec}), flush=True)
+    return out
+
+
+def main() -> int:
+    import gc
+
+    import torch
+    if not torch.cuda.is_available():
+        print("lm_profile: needs a GPU", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    print(cs.card_line(), flush=True)
+    for arch in sys.argv[1:] or [cs.LM_ARCH]:
+        for mode, rec in profile_arch(arch).items():
+            print(json.dumps({"arch": arch, mode: rec}), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
     return 0
 
 
