@@ -3,7 +3,8 @@
 drive the single-tree and forest paths at Give Me Some Credit scale, hold
 each kernel against its plain PyTorch version, serve requests, run the LM
 serving path at qwen3-moe-235b-a22b's width and at the widths of rwkv6,
-whisper and jamba, and print what was measured.
+whisper and jamba, train olmo-1b at its full width and depth, and print
+what was measured.
 
     python3 chip_smoke.py
 
@@ -118,7 +119,26 @@ Phases (any failed check raises, so the script exits non-zero):
    of 8 x 2048 tokens (whisper: 8 x 448, its text context, after encoding
    8 x 1500 frames) and 32 greedy decode steps timed with CUDA events,
    all logits finite and every cache written, beside their bounds;
-11. the kernels line, the card's name and power limit, and the last line:
+11. training (``train_phase``), with the kernels' counters zeroed before
+   and read after (none launched): ``olmo_1b`` whole (16 layers, every
+   published width, 1.18 B params).  Checks first, on 2 of its 16 layers
+   at full width and 2 x 128 tokens: ``loss_fn``'s loss and every
+   gradient leaf on the card against the CPU in f32 compute, and one
+   ``adamw_update`` on the same gradients; remat ``none``/``dots``/
+   ``full`` alike; accum 2 against accum 1; a checkpoint saved at step 3
+   and restored into a fresh state gives step 4 bit for bit (under
+   PyTorch's deterministic algorithms); ``FaultTolerantLoop`` with a
+   failure injected at its 7th call reaches step 12 after restoring step
+   5; one compressed step (``q`` within +-127, finite residual and loss).
+   Then the main cell: ``TokenPipeline(cfg, 8, 2048)``, ``remat="full"``,
+   AdamW defaults with a 5-step warm-up over 30: 2 warm-up steps and 5
+   steps timed with CUDA events, tokens/s, peak memory, the update alone,
+   the step's bound (``train_work``), and ``loss_fn`` against the
+   cross-entropy of ``forward``'s logits; 30 steps at 8 x 512 from a fresh
+   state, whose loss falls by more than ``TRAIN_DECREASE_MARGIN``; one
+   timed step each of ``rwkv6_1p6b`` (8 x 512) and ``whisper_small``
+   (8 x 448 after 8 x 1500 frames), whole;
+12. the kernels line, the card's name and power limit, and the last line:
    ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.
@@ -127,6 +147,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -199,6 +220,32 @@ LM_FAMILIES = {
 }
 LM_STEP_TOL = {"mamba": 2e-3, "rwkv": 5e-3}   # chunked vs stepwise (the
                                               # JAX package's test_models)
+# phase 11: training, olmo-1b whole (16 layers, every published width)
+TRAIN_ARCH = "olmo_1b"
+TRAIN_BATCH = 8              # timed steps of TRAIN_BATCH x TRAIN_SEQ tokens:
+TRAIN_SEQ = 2048             # 16,384 tokens a step
+TRAIN_WARMUP = 2             # untimed steps, then TRAIN_TIMED timed ones
+TRAIN_TIMED = 5
+TRAIN_OPT = dict(warmup_steps=5, total_steps=30)   # AdamWConfig otherwise
+TRAIN_REMAT = "full"
+TRAIN_CUT_LAYERS = 2         # the checks at full width, 2 of 16 layers, on
+TRAIN_CUT_BATCH = 2          # TRAIN_CUT_BATCH x TRAIN_CUT_SEQ tokens
+TRAIN_CUT_SEQ = 128
+TRAIN_DECREASE_STEPS = 30    # the loss decreases over these steps of the
+TRAIN_DECREASE_SEQ = 512     # planted-structure stream at 8 x 512
+TRAIN_FAMILIES = {"rwkv6_1p6b": 512,       # one timed step each, whole, at
+                  "whisper_small": 448}    # 8 x this (whisper: text context)
+# Tolerances of phase 11 (fixed before its first run on the card):
+TRAIN_LOSS_RTOL = 1e-5       # loss, card vs CPU (f32 compute)
+TRAIN_GRAD_TOL = 1e-4        # grad leaves, card vs CPU and accum 2 vs 1 (f32),
+                             # as a fraction of the leaf's largest |g|
+TRAIN_REMAT_TOL = 1e-5       # remat none / dots / full on the card, the same
+TRAIN_UPDATE_TOL = dict(rtol=1e-6, atol=1e-9)   # one adamw_update, card vs
+                                                # CPU on the same grads
+TRAIN_LOGITS_RTOL = 1e-4     # loss_fn vs the CE of forward's bf16 logits
+TRAIN_DECREASE_MARGIN = 0.1  # mean of the last 5 losses below the first 5 by
+                             # more than this (tools/train_probe.py --lrs on its
+                             # seed fell 0.183 at the default lr; PERF.md §6)
 # Dense peak rates by card (NVIDIA data sheets, no sparsity), operations/s:
 # bf16 on the tensor cores, f32 outside them.  The name decides.
 PEAK_FLOPS = (("H200", 989e12, 67e12), ("H100 NVL", 835e12, 60e12),
@@ -2109,6 +2156,357 @@ def lm_families_phase(dev, name: str, bw: float) -> dict:
     return out
 
 
+def train_work(cfg, batch: int, seq: int, n_params: int, remat: str) -> dict:
+    """What one train step of ``batch`` x ``seq`` tokens does, from
+    ``lm_work``'s count of a prefill (its head widened to every token, as
+    the loss needs): operations three times the forward's (the forward and
+    a backward of twice it), plus one forward more for ``remat="full"`` in
+    the ``"reference"`` count (the recomputed repeats); bytes the state
+    that the update reads and writes, 28 per param (param, first and second
+    moment read and written, gradient read; f32)."""
+    fwd = lm_work(cfg, 0, batch, seq)
+    head = 2 * (batch * seq - batch) * cfg.d_model * cfg.vocab_size
+    out = {}
+    for what, w in fwd.items():
+        mult = 3 + (1 if remat == "full" and what == "reference" else 0)
+        out[what] = {"bf16_ops": mult * (w["bf16_ops"] + head),
+                     "f32_ops": mult * w["f32_ops"],
+                     "bytes": 28 * n_params}
+    return out
+
+
+def grads_close(got: dict, want: dict, tol: float) -> float:
+    """The largest distance of a gradient leaf of ``got`` from ``want``'s,
+    as a fraction of that leaf's largest |g| (a leaf that is zero in
+    ``want`` must be zero in ``got``); raises past ``tol``."""
+    from repro_torch.pytree import tree_leaves
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.float().cpu(), b.float().cpu()
+        top = float(b.abs().max())
+        err = float((a - b).abs().max())
+        if top == 0.0:
+            check(err == 0.0, "a gradient leaf that is zero stays zero")
+            continue
+        worst = max(worst, err / top)
+    check(worst <= tol, f"every gradient leaf within {tol} of its largest "
+          f"|g| (worst {worst:.3g})")
+    return worst
+
+
+def train_checks(dev, cfg, opt) -> dict:
+    """Phase 11's checks at full width on ``TRAIN_CUT_LAYERS`` layers:
+    the card against the CPU (loss, every gradient leaf, one AdamW update
+    on the same gradients), the remat modes, accum 2 against accum 1,
+    checkpoint and restore bit for bit, the fault-tolerant loop, and one
+    compressed step.  Returns the record."""
+    import dataclasses
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import init_params, lm
+    from repro_torch.optim import adamw_init, adamw_update, quantize_int8
+    from repro_torch.pytree import tree_leaves, tree_map
+    from repro_torch.runtime import FaultTolerantLoop
+    from repro_torch.train import (accumulate_grads, build_train_step,
+                                   init_train_state)
+
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    cpu = torch.device("cpu")
+    (ROOT / "build").mkdir(exist_ok=True)      # the checkpoints' scratch
+    pipe = TokenPipeline(cut, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, seed=LM_SEED)
+    batch = pipe.batch_at(0)
+    on = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    rec = {"layers": cut.n_layers, "batch": TRAIN_CUT_BATCH,
+           "seq": TRAIN_CUT_SEQ}
+    params = init_params(cut, LM_SEED, device=dev)
+    with mock.patch.object(lm, "COMPUTE_DTYPE", torch.float32):
+        # -- the card against the CPU, f32 compute --------------------------
+        g_card, m_card = accumulate_grads(cut, params, on, remat="full")
+        p_cpu = tree_map(lambda t: t.to(cpu), params)
+        g_cpu, m_cpu = accumulate_grads(cut, p_cpu, batch, remat="full")
+        lc, lh = float(m_card["loss"]), float(m_cpu["loss"])
+        check(abs(lc - lh) <= TRAIN_LOSS_RTOL * abs(lh),
+              f"loss on the card {lc} equals the CPU's {lh} within "
+              f"{TRAIN_LOSS_RTOL}")
+        rec["card_vs_cpu"] = {"loss": lc, "loss_cpu": lh,
+                              "grad_worst": grads_close(g_card, g_cpu,
+                                                        TRAIN_GRAD_TOL)}
+        # one update on the same gradients, on both sides
+        g_same = tree_map(lambda t: t.to(cpu), g_card)
+        pc, sc, mc = adamw_update(g_card, adamw_init(params, opt), params, opt)
+        ph, sh, mh = adamw_update(g_same, adamw_init(p_cpu, opt), p_cpu, opt)
+        worst = 0.0
+        for a, b in zip(tree_leaves((pc, sc.mu, sc.nu)),
+                        tree_leaves((ph, sh.mu, sh.nu))):
+            a = a.cpu()
+            check(torch.allclose(a, b, **TRAIN_UPDATE_TOL),
+                  f"adamw_update on the card equals the CPU's within "
+                  f"{TRAIN_UPDATE_TOL}")
+            worst = max(worst, float((a - b).abs().max()))
+        rec["update_card_vs_cpu_max_abs"] = worst
+        del g_cpu, p_cpu, g_same, pc, sc, ph, sh
+        # -- remat modes and accumulation on the card, f32 -------------------
+        remats = {}
+        for remat in ("none", "dots"):
+            g, m = accumulate_grads(cut, params, on, remat=remat)
+            check(abs(float(m["loss"]) - lc) <= TRAIN_REMAT_TOL * abs(lc),
+                  f"remat {remat}: the loss of remat full")
+            remats[remat] = grads_close(g, g_card, TRAIN_REMAT_TOL)
+        rec["remat_grad_worst"] = remats
+        g2, m2 = accumulate_grads(cut, params, on, accum=2, remat="full")
+        rec["accum2_vs_1"] = {"loss": float(m2["loss"]),
+                              "grad_worst": grads_close(g2, g_card,
+                                                        TRAIN_GRAD_TOL)}
+        del g2, g_card
+    # -- checkpoint and restore, bit for bit (bf16 compute, as trained) -----
+    step = build_train_step(cut, opt)
+    state = init_train_state(cut, LM_SEED, opt_cfg=opt, device=dev)
+    for s in range(3):
+        state, _ = step(state, pipe.batch_at(s))
+    # the embedding's and the gather's backward add with float atomics on
+    # the card, so two runs may differ in the last bit: the restart check
+    # runs with PyTorch's deterministic algorithms
+    a1, _ = step(state, pipe.batch_at(3))
+    a2, _ = step(state, pipe.batch_at(3))
+    rec["restart_equal_without_deterministic"] = all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(a1), tree_leaves(a2)))
+    del a1, a2
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            mgr = CheckpointManager(d)
+            t0 = time.perf_counter()
+            mgr.save(3, state)
+            rec["save_s"] = time.perf_counter() - t0
+            want, wm = step(state, pipe.batch_at(3))
+            fresh = init_train_state(cut, LM_SEED + 1, opt_cfg=opt,
+                                     device=dev)
+            t0 = time.perf_counter()
+            restored, at = mgr.restore(fresh)
+            rec["restore_s"] = time.perf_counter() - t0
+            check(at == 3 and int(restored.opt.step) == 3,
+                  "restored the checkpoint of step 3")
+            got, gm = step(restored, pipe.batch_at(3))
+        check(all(torch.equal(x, y) for x, y in zip(tree_leaves(got),
+                                                    tree_leaves(want)))
+              and all(torch.equal(gm[k], wm[k]) for k in wm),
+              "step 4 after the restore equals the uninterrupted step 4 "
+              "bit for bit")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rec["checkpoint_GB"] = sum(t.numel() * t.element_size()
+                               for t in tree_leaves(state)) / 1e9
+    del state, want, got, restored, fresh
+    # -- the fault-tolerant loop ---------------------------------------------
+    logs, calls = [], {"n": 0}
+
+    def flaky(st, b):
+        calls["n"] += 1
+        if calls["n"] == 7:
+            raise RuntimeError("injected failure")
+        return step(st, b)
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        loop = FaultTolerantLoop(flaky, pipe.batch_at, CheckpointManager(d),
+                                 ckpt_every=5, max_retries=2)
+        t0 = time.perf_counter()
+        state, end, hist = loop.run(
+            init_train_state(cut, LM_SEED, opt_cfg=opt, device=dev), 0, 12,
+            log_every=0, log=logs.append)
+        rec["fault_loop_s"] = time.perf_counter() - t0
+    check(end == 12 and int(state.opt.step) == 12,
+          f"the fault loop reached step 12 ({end})")
+    check(all(math.isfinite(h["loss"]) for h in hist),
+          "every loss of the fault loop is finite")
+    check("[fault] restored checkpoint at step 5" in logs,
+          f"the loop restored step 5 after the failure ({logs})")
+    rec["fault_loop"] = {"end": end, "log": logs,
+                         "losses": [h["loss"] for h in hist]}
+    del state
+    # -- one compressed step --------------------------------------------------
+    state = init_train_state(cut, LM_SEED, compress=True, opt_cfg=opt,
+                             device=dev)
+    grads, _ = accumulate_grads(cut, state.params, on)
+    qmax = max(int(quantize_int8(g)[0].abs().max())
+               for g in tree_leaves(grads))
+    check(all(quantize_int8(g)[0].dtype == torch.int8
+              for g in tree_leaves(grads)) and qmax <= 127,
+          f"q is int8 within +-127 ({qmax})")
+    state, m = build_train_step(cut, opt, compress=True)(state, batch)
+    check(math.isfinite(float(m["loss"]))
+          and all(bool(torch.isfinite(r).all())
+                  for r in tree_leaves(state.ef)),
+          "the compressed step's loss and EF residual are finite")
+    rec["compressed"] = {"loss": float(m["loss"]), "q_max": qmax,
+                         "ef_max": max(float(r.abs().max())
+                                       for r in tree_leaves(state.ef))}
+    return rec
+
+
+def train_family(dev, arch: str, seq: int, bw: float, peaks: tuple) -> dict:
+    """One timed train step of ``arch`` whole at every published width, at
+    ``TRAIN_BATCH`` x ``seq`` tokens (after one untimed step): finite loss
+    and gradients, step ms beside its bound, peak memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import param_count
+    from repro_torch.optim import AdamWConfig, global_norm
+    from repro_torch.train import build_train_step, init_train_state
+
+    cfg = get_config(arch)
+    opt = AdamWConfig(**TRAIN_OPT)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, LM_SEED, opt_cfg=opt, device=dev)
+    n_params = param_count(state.params)
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, seq, seed=LM_SEED)
+    step = build_train_step(cfg, opt, remat=TRAIN_REMAT)
+    state, _ = step(state, pipe.batch_at(0))
+    (state, m), ms = event_ms(lambda: step(state, pipe.batch_at(1)))
+    check(math.isfinite(float(m["loss"])) and math.isfinite(
+        float(m["grad_norm"])) and math.isfinite(float(global_norm(
+            state.params))), f"{arch}: finite loss, gradients and params")
+    work = train_work(cfg, TRAIN_BATCH, seq, n_params, TRAIN_REMAT)
+    rec = {"arch": arch, "layers": cfg.n_layers,
+           "encoder_layers": cfg.encoder_layers if cfg.is_encdec else 0,
+           "params": n_params, "batch": TRAIN_BATCH, "seq": seq,
+           "step_ms": ms, "tokens_per_s": TRAIN_BATCH * seq / ms * 1e3,
+           "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "work": work,
+           "bound_ms_by": {w: lm_bound_ms(work[w], bw, peaks)
+                           for w in work},
+           "max_memory_allocated_GB":
+               torch.cuda.max_memory_allocated() / 1e9}
+    log(json.dumps({"train_family": rec}))
+    return rec
+
+
+def train_phase(dev, name: str, bw: float) -> dict:
+    """Phase 11: the trainer at ``TRAIN_ARCH``'s full width and depth on the
+    card, then one step of each of ``TRAIN_FAMILIES``; the match kernels'
+    counters are zeroed before and read after (training launches none).
+    Returns the phase's record."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import forward, loss_fn, param_count
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.train import (accumulate_grads, build_train_step,
+                                   init_train_state)
+
+    t_phase = time.perf_counter()
+    zero_counts()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 products run in f32, not TF32")
+    cfg = get_config(TRAIN_ARCH)
+    opt = AdamWConfig(**TRAIN_OPT)
+    peaks = peak_flops(name)
+    log(f"train: {cfg.name} whole ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}); memory before: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    out = {"checks": train_checks(dev, cfg, opt)}
+    log(json.dumps({"train_checks": out["checks"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the main cell: timed steps -------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    (state, t_init) = sync_time(lambda: init_train_state(
+        cfg, LM_SEED, opt_cfg=opt, device=dev))
+    n_params = param_count(state.params)
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=LM_SEED)
+    step = build_train_step(cfg, opt, remat=TRAIN_REMAT)
+    for i in range(TRAIN_WARMUP):
+        state, m = step(state, pipe.batch_at(i))
+    torch.cuda.synchronize()
+    init_GB = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_TIMED):
+        (state, m), ms = event_ms(lambda: step(state, pipe.batch_at(i)))
+        times.append(ms)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(v) for v in losses), "every timed loss is finite")
+    # -- the update alone, on one more step's gradients -----------------------
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(TRAIN_WARMUP + TRAIN_TIMED).items()}
+    grads, _ = accumulate_grads(cfg, state.params, batch, remat=TRAIN_REMAT)
+    upd = [event_ms(lambda: adamw_update(grads, state.opt, state.params,
+                                         opt))[1] for _ in range(4)][1:]
+    # -- loss_fn against the cross-entropy of forward's logits ---------------
+    with torch.no_grad():
+        loss, _ = loss_fn(state.params, cfg, batch)
+        logits = forward(state.params, cfg, batch["tokens"]).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        ce = float((lse - gold).mean())
+    del logits, lse, gold, grads
+    check(abs(float(loss) - ce) <= TRAIN_LOGITS_RTOL * abs(ce),
+          f"loss_fn {float(loss)} equals the CE of forward's logits {ce} "
+          f"within {TRAIN_LOGITS_RTOL}")
+    work = train_work(cfg, TRAIN_BATCH, TRAIN_SEQ, n_params, TRAIN_REMAT)
+    upd_bound = 28 * n_params / bw * 1e3
+    out["main"] = {
+        "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+        "state_GB": 16 * n_params / 1e9, "init_s": t_init,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": TRAIN_REMAT,
+        "step_ms": times, "step_ms_median": statistics.median(times),
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+        / statistics.median(times) * 1e3,
+        "losses": losses, "max_memory_allocated_GB": peak,
+        "max_memory_allocated_GB_warmup": init_GB,
+        "update_ms": upd, "update_ms_median": statistics.median(upd),
+        "update_bound_ms": upd_bound,
+        "loss_fn_vs_forward_ce": {"loss_fn": float(loss), "ce": ce},
+        "work": work,
+        "bound_ms_by": {w: lm_bound_ms(work[w], bw, peaks) for w in work}}
+    log(json.dumps({"train": out["main"]}))
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the loss decreases on the planted-structure stream ------------------
+    state = init_train_state(cfg, LM_SEED, opt_cfg=opt, device=dev)
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_DECREASE_SEQ, seed=LM_SEED)
+    losses = []
+    for i in range(TRAIN_DECREASE_STEPS):
+        state, m = step(state, pipe.batch_at(i))
+        losses.append(float(m["loss"]))
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(all(math.isfinite(v) for v in losses)
+          and last < first - TRAIN_DECREASE_MARGIN,
+          f"the loss decreased by more than {TRAIN_DECREASE_MARGIN}: first "
+          f"5 {first}, last 5 {last}")
+    out["decrease"] = {"steps": TRAIN_DECREASE_STEPS, "batch": TRAIN_BATCH,
+                       "seq": TRAIN_DECREASE_SEQ, "losses": losses,
+                       "first5": first, "last5": last}
+    log(json.dumps({"train_decrease": out["decrease"]}))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- one step of each other family ------------------------------------------
+    for arch, seq in TRAIN_FAMILIES.items():
+        out[arch] = train_family(dev, arch, seq, bw, peaks)
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    log(f"phase 11 launches: {counts}")
+    check(not any(counts.values()), "training launches no match kernel")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 11: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2320,7 +2718,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_families_phase(dev, name, bw)
 
-    # -- 11. result --------------------------------------------------------------
+    # -- 11. training at olmo-1b's full width and depth -------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_phase(dev, name, bw)
+
+    # -- 12. result --------------------------------------------------------------
     log(smi)
     log(json.dumps({"kernels": [bitplane, packed, banked]}))
     log(json.dumps({"ok": True, "device": {

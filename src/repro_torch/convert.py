@@ -25,9 +25,19 @@ caller names it.
 JAX package's param pytree as numpy arrays (``jax.tree.map(np.asarray,
 params)``) and returns the port's pytree of tensors on ``device``, with the
 same nesting, values, dtypes (bfloat16 included) and stacked layout.
+
+``train_state_from_arrays`` does the same for a whole train state (the JAX
+package's ``TrainState`` as numpy arrays: params, AdamW moments and step,
+and the EF residual or None), and ``train_state_to_arrays`` goes back: the
+port's ``TrainState`` of numpy arrays, bf16 leaves as their raw ``int16``
+words (the form the checkpoint writes; numpy has no bfloat16 of its own).
+
+``to_numpy`` and ``from_numpy`` are the host conversions under all of
+these and under the checkpoint manager.
 """
 from __future__ import annotations
 
+import functools
 from typing import Mapping
 
 import numpy as np
@@ -40,9 +50,30 @@ from .core.reduce import RuleTable
 from .core.synth import TCAMLayout
 from .device import DeviceLike, resolve_device
 from .forest.compiler import CompiledForest, ForestBank
+from .pytree import tree_map
 
 __all__ = ["compiled_from_arrays", "forest_from_arrays",
-           "lm_params_from_arrays"]
+           "lm_params_from_arrays", "train_state_from_arrays",
+           "train_state_to_arrays", "to_numpy", "from_numpy"]
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t``; bf16 as its raw words (``int16``)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    return t.numpy()
+
+
+def from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """A tensor on ``device`` from a host array; 2-byte void words (a
+    ``'<V2'`` leaf) or numpy's bfloat16 extension type come back bf16."""
+    a = np.require(a, requirements=("C", "W"))   # torch wants writable
+    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device, copy=True)
 
 
 def compiled_from_arrays(z: Mapping[str, np.ndarray],
@@ -100,15 +131,6 @@ def forest_from_arrays(z: Mapping[str, np.ndarray],
     )
 
 
-def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    a = np.require(a, requirements=("C", "W"))   # torch wants writable
-    if a.dtype.name == "bfloat16":   # numpy's bfloat16 extension type
-        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(a)
-    return t.to(dev, copy=True)   # never shares the caller's buffer
-
-
 def lm_params_from_arrays(tree, *, device: DeviceLike = None):
     """The port's LM params from the JAX package's, given as numpy arrays
     in nested dicts; tensors on ``device`` (default: the card)."""
@@ -117,6 +139,27 @@ def lm_params_from_arrays(tree, *, device: DeviceLike = None):
     def conv(t):
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
-        return _tensor(np.asarray(t), dev)
+        return from_numpy(np.asarray(t), dev)   # never shares the buffer
 
     return conv(tree)
+
+
+def train_state_from_arrays(state, *, device: DeviceLike = None):
+    """The port's ``TrainState`` from the JAX package's, given as numpy
+    arrays (``jax.tree.map(np.asarray, state)``); tensors on ``device``
+    (default: the card)."""
+    from .optim import OptState
+    from .train import TrainState
+    dev = resolve_device(device)
+    conv = functools.partial(lm_params_from_arrays, device=dev)
+    return TrainState(
+        params=conv(state.params),
+        opt=OptState(mu=conv(state.opt.mu), nu=conv(state.opt.nu),
+                     step=from_numpy(np.asarray(state.opt.step), dev)),
+        ef=None if state.ef is None else conv(state.ef))
+
+
+def train_state_to_arrays(state):
+    """The port's ``TrainState`` with every leaf a host numpy array, bf16
+    leaves as their raw ``int16`` words."""
+    return tree_map(to_numpy, state)

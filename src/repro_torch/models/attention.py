@@ -3,8 +3,9 @@ forward/prefill, plus a single-query decode path over KV caches (full or
 sliding-window ring).
 
 The chunked formulation never materializes the (Sq, Sk) score matrix —
-peak memory is O(q_chunk · kv_chunk) per head group.  Scores, softmax
-statistics and the accumulator are f32 whatever the operands' dtype.
+peak memory is O(q_chunk · kv_chunk) per head group, in the backward too
+(each query chunk is recomputed there).  Scores, softmax statistics and the
+accumulator are f32 whatever the operands' dtype.
 
 Known waste (kept for parity with the reference): causal masking is applied
 to full block products, so causal attention executes ~2x the minimal FLOPs;
@@ -13,6 +14,8 @@ triangular block scheduling is later performance work.
 from __future__ import annotations
 
 import torch
+
+from .layers import checkpointed
 
 NEG_INF = -1e30
 
@@ -45,14 +48,13 @@ def flash_attention(
     g = h // kv
     q_chunk = _fit(sq, q_chunk)
     kv_chunk = _fit(sk, kv_chunk)
-    nq, nk = sq // q_chunk, sk // kv_chunk
+    nk = sk // kv_chunk
     scale = hd ** -0.5
     dev = q.device
-    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=dev)
 
-    for qi_idx in range(nq):
-        q0 = qi_idx * q_chunk
-        qi = q[:, q0:q0 + q_chunk].reshape(b, q_chunk, kv, g, hd).float()
+    def q_step(qi, q0, k, v):
+        """One query chunk against every key chunk (online softmax)."""
+        qi = qi.reshape(b, q_chunk, kv, g, hd).float()
         q_pos = q_offset + q0 + torch.arange(q_chunk, device=dev)
         m = torch.full((b, q_chunk, kv, g), NEG_INF, dtype=torch.float32,
                        device=dev)
@@ -86,10 +88,14 @@ def flash_attention(
                 "bqkgs,bskh->bqkgh", p, vj)
             m = m_new
             del s, p   # free this step's score blocks before the next's
-
         o = acc / torch.clamp_min(l, 1e-30)[..., None]
-        out[:, q0:q0 + q_chunk] = o.reshape(b, q_chunk, h, hd).to(q.dtype)
-    return out
+        return o.reshape(b, q_chunk, h, hd).to(q.dtype)
+
+    # Each query chunk is recomputed in the backward (as the reference's
+    # jax.checkpoint): the backward's peak is one chunk's scores, not Sq x Sk.
+    return torch.cat([
+        checkpointed(q_step, q[:, q0:q0 + q_chunk], q0, k, v)
+        for q0 in range(0, sq, q_chunk)], dim=1)
 
 
 def decode_attention(

@@ -1,4 +1,5 @@
-"""Common layers: norms, RoPE, dense MLPs, initializers.
+"""Common layers: norms, RoPE, dense MLPs, initializers, and the
+recompute-in-backward wrapper (``jax.checkpoint``'s counterpart).
 
 Compute dtype is bf16 (params f32, cast at use); norms and softmax statistics
 run in f32.  The gated MLP's GeGLU uses the tanh approximation of GELU, which
@@ -6,13 +7,43 @@ is what the JAX package's ``jax.nn.gelu`` computes by default.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 __all__ = [
     "rms_norm", "nonparam_norm", "rope", "rope_table", "mlp", "act_fn",
-    "dense_init", "COMPUTE_DTYPE",
+    "dense_init", "checkpointed", "REMAT", "COMPUTE_DTYPE",
 ]
+
+REMAT = ("none", "dots", "full")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of products
+    without batch dimensions (``mm``/``addmm``), recompute the rest
+    (``bmm`` included)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpointed(fn, *args, remat: str = "full"):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    stored (``remat="full"``), or all but its ``mm`` outputs
+    (``remat="dots"``); ``"none"``, or no gradient being recorded, is a
+    plain call."""
+    if remat not in REMAT:
+        raise ValueError(f"remat={remat!r}; expected one of {REMAT}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 COMPUTE_DTYPE = torch.bfloat16
 

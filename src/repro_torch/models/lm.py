@@ -1,7 +1,8 @@
-"""The model stack: forward / prefill / decode for every configuration:
-the attention families (block kinds ``attn``/``swa`` x ``mlp``/``moe``, with
-the multimodal prefix), the recurrent mixers (``mamba``, ``rwkv`` with its
-channel mix ``cmix``) and the encoder-decoder with cross-attention.
+"""The model stack: forward / training loss / prefill / decode for every
+configuration: the attention families (block kinds ``attn``/``swa`` x
+``mlp``/``moe``, with the multimodal prefix), the recurrent mixers
+(``mamba``, ``rwkv`` with its channel mix ``cmix``) and the
+encoder-decoder with cross-attention.
 
 Layers run as a Python loop over the stacked per-kind params in the order of
 ``cfg.pattern`` repeated ``cfg.n_repeat`` times; layer ``r`` of kind ``k``
@@ -9,6 +10,8 @@ reads slice ``r * occ_k + i`` of its kind's stacked leaves.
 
 Modes:
   forward     — full-sequence logits (evaluation; no cache I/O),
+  loss_fn     — full sequence, chunked next-token cross-entropy, with the
+                graph recorded for the backward (training),
   prefill     — full sequence, fills the caches, returns the last logits,
   decode_step — one token against the caches.
 
@@ -21,9 +24,12 @@ values.  ``prefill`` and ``decode_step`` write each layer's slice of the
 stacked caches in place (``copy_`` into the views) and return the same dict.
 
 On one device there is no sharding: the JAX package's ``shard`` annotations
-and its FSDP gather-at-use are no-ops there and have no counterpart here;
-nor has ``jax.checkpoint``, which only shapes a backward pass.  The training
-loss waits for the training slice.
+and its FSDP gather-at-use are no-ops there and have no counterpart here.
+``jax.checkpoint`` maps to ``torch.utils.checkpoint`` (``layers.checkpointed``)
+at the same places: a repeat of ``cfg.pattern`` under ``remat``, each loss
+chunk, each attention query chunk, each MoE token group, each mamba and
+rwkv chunk.  The serving entry points run without a gradient; ``loss_fn``
+records one.
 """
 from __future__ import annotations
 
@@ -34,12 +40,14 @@ import torch
 from ..device import DeviceLike, resolve_device
 from .attention import decode_attention, flash_attention
 from .config import ModelConfig
-from .layers import COMPUTE_DTYPE, mlp, nonparam_norm, rms_norm, rope, rope_table
+from .layers import (COMPUTE_DTYPE, checkpointed, mlp, nonparam_norm,
+                     rms_norm, rope, rope_table)
 from .mamba import init_mamba_state, mamba_mixer
 from .moe import moe_ffn
 from .rwkv import init_rwkv_state, rwkv_channel_mix, rwkv_mixer
 
-__all__ = ["forward", "prefill", "decode_step", "init_cache", "encode_audio"]
+__all__ = ["forward", "loss_fn", "prefill", "decode_step", "init_cache",
+           "encode_audio"]
 
 
 @dataclasses.dataclass
@@ -193,10 +201,15 @@ def _apply_block(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
     return h
 
 
-def _run_blocks(cfg: ModelConfig, blocks: dict, caches, h, ctx: Ctx):
-    """Every layer in order; each layer's cache slice is updated in place."""
+def _run_blocks(cfg: ModelConfig, blocks: dict, caches, h, ctx: Ctx,
+                remat: str = "none"):
+    """Every layer in order; each layer's cache slice is updated in place.
+    ``remat`` (``"none"``, ``"dots"``, ``"full"``) recomputes each repeat of
+    ``cfg.pattern`` in the backward, as the reference's checkpointed scan
+    body."""
     occ_per = {kind: len(cfg.kind_positions(kind)) for kind in blocks}
-    for r in range(cfg.n_repeat):
+
+    def unit(h, r):
         counters = {kind: 0 for kind in blocks}
         for kind in cfg.pattern:
             idx = r * occ_per[kind] + counters[kind]
@@ -205,6 +218,10 @@ def _run_blocks(cfg: ModelConfig, blocks: dict, caches, h, ctx: Ctx):
             c_i = (None if caches is None else
                    {name: a[idx] for name, a in caches[kind].items()})
             h = _apply_block(kind, h, p_i, cfg, ctx, c_i)
+        return h
+
+    for r in range(cfg.n_repeat):
+        h = checkpointed(unit, h, r, remat=remat)
     return h
 
 
@@ -226,8 +243,7 @@ def _embed(params, cfg: ModelConfig, tokens, frontend=None):
 
 
 def _logits(params, cfg: ModelConfig, h):
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ w.to(h.dtype)
+    return h @ _head(params, cfg).to(h.dtype)
 
 
 def _rope_tables(cfg: ModelConfig, positions):
@@ -236,11 +252,7 @@ def _rope_tables(cfg: ModelConfig, positions):
     return rope_table(positions, cfg.head_dim, cfg.rope_theta)
 
 
-@torch.no_grad()
-def encode_audio(params, cfg: ModelConfig, frames):
-    """Whisper encoder: frames are stub frontend embeddings (B, S_enc, D);
-    non-causal ``attn+mlp`` blocks without cross-attention, then the
-    encoder's final norm."""
+def _encode(params, cfg: ModelConfig, frames, remat: str):
     enc = params["encoder"]
     if frames is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: pass frames=")
@@ -251,32 +263,92 @@ def encode_audio(params, cfg: ModelConfig, frames):
                                   pattern=("attn+mlp",))
     sin, cos = _rope_tables(cfg, torch.arange(h.shape[1], device=h.device))
     ctx = Ctx(mode="full", sin=sin, cos=cos, causal=False)
-    h = _run_blocks(cfg_enc, enc["blocks"], None, h, ctx)
+    h = _run_blocks(cfg_enc, enc["blocks"], None, h, ctx, remat=remat)
     return _norm(h, enc["final_norm"], cfg)
 
 
-def _start(params, cfg: ModelConfig, tokens, frontend, frames):
+@torch.no_grad()
+def encode_audio(params, cfg: ModelConfig, frames):
+    """Whisper encoder: frames are stub frontend embeddings (B, S_enc, D);
+    non-causal ``attn+mlp`` blocks without cross-attention, then the
+    encoder's final norm."""
+    return _encode(params, cfg, frames, "none")
+
+
+def _start(params, cfg: ModelConfig, tokens, frontend, frames,
+           remat: str = "none"):
     """The encoder's output (encoder-decoder only) and the embedded tokens
     with the decoder's positions added."""
-    enc_out = encode_audio(params, cfg, frames) if cfg.is_encdec else None
+    enc_out = (_encode(params, cfg, frames, remat) if cfg.is_encdec
+               else None)
     h = _embed(params, cfg, tokens, frontend)
     if cfg.is_encdec:
         h = h + params["dec_pos_emb"][None, :h.shape[1]].to(h.dtype)
     return enc_out, h
 
 
-@torch.no_grad()
-def forward(params, cfg: ModelConfig, tokens, *, frontend=None, frames=None):
-    """Full-sequence activations -> logits (B, S, V) in bf16; an
-    encoder-decoder takes its encoder's input as ``frames``."""
-    enc_out, h = _start(params, cfg, tokens, frontend, frames)
+def _hidden(params, cfg: ModelConfig, tokens, frontend, frames,
+            remat: str = "none"):
+    """The final-normed hidden states (B, S, D) of the full sequence."""
+    enc_out, h = _start(params, cfg, tokens, frontend, frames, remat)
     s = h.shape[1]
     sin, cos = _rope_tables(cfg, torch.arange(s, device=h.device))
     ctx = Ctx(mode="full", sin=sin, cos=cos, prefix_len=cfg.frontend_tokens,
               enc_out=enc_out)
-    h = _run_blocks(cfg, params["blocks"], None, h, ctx)
-    h = _norm(h, params["final_norm"], cfg)
-    return _logits(params, cfg, h)
+    h = _run_blocks(cfg, params["blocks"], None, h, ctx, remat=remat)
+    return _norm(h, params["final_norm"], cfg)
+
+
+def _head(params, cfg: ModelConfig):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+@torch.no_grad()
+def forward(params, cfg: ModelConfig, tokens, *, frontend=None, frames=None):
+    """Full-sequence activations -> logits (B, S, V) in bf16; an
+    encoder-decoder takes its encoder's input as ``frames``."""
+    return _logits(params, cfg, _hidden(params, cfg, tokens, frontend,
+                                        frames))
+
+
+def _chunk_loss(hc, lc, w):
+    """Summed next-token cross-entropy of one chunk, and its label count."""
+    logits = (hc @ w.to(hc.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc.clamp_min(0)[..., None])[..., 0]
+    valid = lc >= 0
+    return ((lse - gold) * valid).sum(), valid.sum(dtype=torch.int32)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, remat: str = "dots",
+            loss_chunk: int = 1024):
+    """Next-token CE with seq-chunked logits (peak memory ~ B x chunk x V);
+    labels of -1 (and a multimodal prefix's positions) carry no loss.
+    Records the graph for a backward pass; each chunk's logits are
+    recomputed there.  ``batch`` holds ``tokens`` and ``labels`` (B, S_text)
+    and, per configuration, ``patches`` or ``frames``.  Returns
+    (loss, {"loss", "tokens"})."""
+    h = _hidden(params, cfg, batch["tokens"], batch.get("patches"),
+                batch.get("frames"), remat)
+    labels = torch.as_tensor(batch["labels"], device=h.device).long()
+    if cfg.frontend_tokens:
+        # frontend positions carry no next-token loss
+        pad = labels.new_full((labels.shape[0], cfg.frontend_tokens), -1)
+        labels = torch.cat([pad, labels], dim=1)
+    w = _head(params, cfg)
+    s = h.shape[1]
+    chunk = min(loss_chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of loss_chunk "
+                         f"{chunk}")
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=h.device)
+    for c0 in range(0, s, chunk):
+        loss, n = checkpointed(_chunk_loss, h[:, c0:c0 + chunk],
+                               labels[:, c0:c0 + chunk], w)
+        tot, cnt = tot + loss, cnt + n
+    loss = tot / torch.clamp_min(cnt, 1)
+    return loss, {"loss": loss, "tokens": cnt}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,

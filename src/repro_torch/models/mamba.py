@@ -4,7 +4,8 @@ Prefill and the full forward run a *chunked* selective scan: the sequence is
 processed in chunks carrying the (B, d_inner, N) state; inside a chunk the
 recurrence is a plain time loop.  The chunk bounds the materialized
 (B, chunk, d_inner, N) discretized tensors — the full-sequence
-(B, S, d_inner, N) form would be tens of GB at 4k+ sequence lengths.  The
+(B, S, d_inner, N) form would be tens of GB at 4k+ sequence lengths; the
+backward recomputes one chunk at a time.  The
 chunk is the largest divisor of S that is <= ``CHUNK``, so a prime S runs
 chunks of one token.
 
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 from ..device import DeviceLike, resolve_device
 from .attention import _fit
 from .config import ModelConfig
+from .layers import checkpointed
 
 __all__ = ["mamba_mixer", "mamba_decode", "init_mamba_state", "CHUNK"]
 
@@ -71,15 +73,19 @@ def _ssm(x: torch.Tensor, p: dict, cfg: ModelConfig,
     h = (torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
          if h0 is None else h0)
     chunk = _fit(s, CHUNK)
-    ys = []
-    for c0 in range(0, s, chunk):
-        dt_c, b_c, c_c, x_c = (t[:, c0:c0 + chunk]
-                               for t in (dt, bmat, cmat, xf))
+
+    def outer(h, dt_c, b_c, c_c, x_c):
         da = torch.exp(dt_c[..., None] * a)                 # (B,C,Di,N)
         dbx = dt_c[..., None] * b_c[:, :, None, :] * x_c[..., None]
-        h, y = _ssm_chunk(h, da, dbx, c_c)
+        return _ssm_chunk(h, da, dbx, c_c)
+
+    ys = []
+    for c0 in range(0, s, chunk):
+        # recomputed per chunk in the backward: without it autograd keeps
+        # every time step's (B, Di, N) state
+        h, y = checkpointed(outer, h, *(t[:, c0:c0 + chunk]
+                                        for t in (dt, bmat, cmat, xf)))
         ys.append(y)
-        del da, dbx
     y = torch.cat(ys, dim=1)
     y = y + xf * p["Dskip"].float()
     return y.to(x.dtype), h

@@ -8,8 +8,11 @@ to a multiple of 8) are dropped (standard GShard/Switch semantics).  The
 bytes = E*C*D ~= cf * k * tokens * d_model, independent of E.
 
 Token groups (``cfg.moe_groups``, GShard style) route, dispatch and compute
-one group at a time, each with its own capacity; the expert weights are cast
-to the compute dtype once per layer call and shared by every group.
+one group at a time, each with its own capacity, and are recomputed one at a
+time in the backward.  Serving casts the expert weights to the compute dtype
+once per layer call and shares them across groups.  Gradients reach the
+router only through the top-k gates that were gathered; a dispatch dropped
+over capacity gets none.
 
 ``router="tcam_dt"``: routing decisions come from a decision tree compiled to
 a ternary LUT by the paper's DT-HW compiler and evaluated as a ternary match
@@ -20,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from .config import ModelConfig
-from .layers import act_fn
+from .layers import act_fn, checkpointed
 
 __all__ = ["moe_ffn", "capacity", "route"]
 
@@ -85,11 +88,18 @@ def moe_ffn(
     t = b * s
     g = cfg.moe_groups if (b * s) % cfg.moe_groups == 0 else 1  # decode: t=B
     dt = x.dtype
-    w = {n: p[n].to(dt) for n in _EXPERT_WEIGHTS}   # once per layer call
+    # Serving casts the expert weights once per layer call, shared by every
+    # group.  With a gradient each group casts its own (inside its
+    # checkpoint), so the f32 leaves collect the groups' gradients in f32,
+    # as the reference's per-group cast does.
+    w = (None if torch.is_grad_enabled() else
+         {n: p[n].to(dt) for n in _EXPERT_WEIGHTS})
     xg = x.reshape(g, t // g, d)
-    y = torch.empty_like(xg)
-    for i in range(g):
-        y[i] = _moe_group(xg[i], p, cfg, router_bits, w)
+    # with groups, each is recomputed in the backward (the reference's
+    # checkpointed scan over groups)
+    remat = "full" if g > 1 else "none"
+    y = torch.stack([checkpointed(_moe_group, xg[i], p, cfg, router_bits, w,
+                                  remat=remat) for i in range(g)])
     return y.reshape(b, s, d)
 
 
@@ -98,11 +108,13 @@ def _moe_group(
     p: dict,
     cfg: ModelConfig,
     router_bits: dict | None,
-    w: dict,                      # expert weights already in x's dtype
+    w: dict | None,               # expert weights in x's dtype, or None
 ) -> torch.Tensor:
     t, d = xt.shape
     e = cfg.n_experts
     dt = xt.dtype
+    if w is None:
+        w = {n: p[n].to(dt) for n in _EXPERT_WEIGHTS}
     top_w, top_i = route(xt, p, cfg, router_bits)
     k = top_i.shape[1]
 

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from ..device import DeviceLike, resolve_device
 from .attention import _fit
 from .config import ModelConfig
-from .layers import rms_norm
+from .layers import checkpointed, rms_norm
 
 __all__ = ["rwkv_mixer", "rwkv_decode", "rwkv_channel_mix",
            "init_rwkv_state", "CHUNK"]
@@ -35,6 +35,15 @@ __all__ = ["rwkv_mixer", "rwkv_decode", "rwkv_channel_mix",
 # over a 16-token chunk, so e^{±L} is representable in f32.
 CHUNK = 16
 CLIP = 44.0
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: minimum(maximum(x, lo), hi), whose gradient is split
+    in half where x equals a bound (``torch.clamp`` passes all of it; the
+    init's ``w_base`` reaches the upper bound 1.0 exactly)."""
+    if lo is not None:
+        x = torch.maximum(x, x.new_full((), lo))
+    return torch.minimum(x, x.new_full((), hi))
 
 
 def _proj(x, w, dt):
@@ -57,7 +66,7 @@ def _mix_heads(x: torch.Tensor, x_prev: torch.Tensor, p: dict,
     wl = xs[3].float() @ p["w_lora_a"].float()
     wl = torch.tanh(wl) @ p["w_lora_b"].float()
     logw = -torch.exp(
-        torch.clamp(p["w_base"].float() + wl, -8.0, 1.0)
+        _clip(p["w_base"].float() + wl, -8.0, 1.0)
     ).reshape(b, s, h, hd)                                   # log w_t < 0
     g = F.silu(_proj(xs[4], p["wg"], dt))                    # (B,S,D)
     return r, k, v, logw, g
@@ -70,7 +79,7 @@ def _wkv_chunk(s_in, r, k, v, logw, u):
     lcum = torch.cumsum(logw, dim=2)                         # L_t (incl. t)
     lprev = lcum - logw                                      # L_{t-1}
     r_t = r * torch.exp(lprev)
-    k_t = k * torch.exp(torch.clamp_max(-lcum, CLIP))
+    k_t = k * torch.exp(_clip(-lcum, None, CLIP))
     a = r_t @ k_t.transpose(-1, -2)                          # (B,H,C,C)
     mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
                       diagonal=-1)
@@ -105,8 +114,10 @@ def rwkv_mixer(
                       for t in (r, k, v, logw))              # (B,H,S,hd)
     ys = []
     for c0 in range(0, s, chunk):
-        s_st, y = _wkv_chunk(s_st, *(t[:, :, c0:c0 + chunk]
-                                     for t in (rf, kf, vf, wf)), u)
+        # recomputed per chunk in the backward, as the reference's
+        s_st, y = checkpointed(_wkv_chunk, s_st, *(t[:, :, c0:c0 + chunk]
+                                                   for t in (rf, kf, vf, wf)),
+                               u)
         ys.append(y)
     y = torch.cat(ys, dim=2).transpose(1, 2)                 # (B,S,H,hd)
     # per-head group norm, then gate and output projection

@@ -16,13 +16,13 @@
 """
 from .batching import AdaptiveBatcher, BucketPolicy
 from .cache import CompileCache
-from .engine import RequestResult, ServeConfig, TCAMServer
+from .engine import PromotionReport, RequestResult, ServeConfig, TCAMServer
 from .errors import ComputeFailed, DeadlineExceeded, Rejected, ServingError
 from .metrics import LatencyStats, ServeMetrics
 
 __all__ = [
     "AdaptiveBatcher", "BucketPolicy", "CompileCache",
-    "RequestResult", "ServeConfig", "TCAMServer",
+    "PromotionReport", "RequestResult", "ServeConfig", "TCAMServer",
     "LatencyStats", "ServeMetrics",
     "ServingError", "Rejected", "DeadlineExceeded", "ComputeFailed",
 ]

@@ -37,7 +37,10 @@ function of the port patched to raise.
 The LM path on the card against the same port on the CPU: forward, prefill
 and decode_step of the reduced attention, MoE, mamba-hybrid, rwkv and
 encoder-decoder configs, the mamba and rwkv mixers with carried state, the
-MoE layer and the TCAM router.
+MoE layer and the TCAM router.  Training on the card against the same
+port on the CPU: the loss and every gradient leaf of five reduced configs
+in f32, a whole train step that leaves its input state intact, and a
+checkpoint restored onto the card and onto the CPU.
 """
 import numpy as np
 import pytest
@@ -1064,3 +1067,73 @@ def test_route_tcam_on_card_equals_predict(cuda):
     got = route_tcam(torch.from_numpy(Xt).to(cuda), bits)
     assert got.is_cuda
     np.testing.assert_array_equal(got.cpu().numpy(), predict(tree, Xt))
+
+
+# ---------------------------------------------------------------------------
+# training: the card against the same port on the CPU
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmo_1b", "qwen3_moe_235b_a22b",
+                                  "jamba_v01_52b", "rwkv6_1p6b",
+                                  "whisper_small"])
+def test_train_on_card_equals_cpu(cuda, arch):
+    """``loss_fn``'s loss and every gradient leaf of a reduced config on
+    the card equal the port's on the CPU, in f32 compute (loss within
+    1e-5 relative, each leaf within 1e-4 of its largest |g|, as the CPU
+    parity tests hold the port to the JAX package); then one whole train
+    step on the card leaves finite params and its input state untouched."""
+    from unittest import mock
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import init_params, lm
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train import (accumulate_grads, build_train_step,
+                                   init_train_state)
+    cfg = get_reduced(arch)
+    cpu = torch.device("cpu")
+    batch = TokenPipeline(cfg, 4, 32, seed=0).batch_at(0)
+    p_cpu = init_params(cfg, 0, device=cpu)
+    with mock.patch.object(lm, "COMPUTE_DTYPE", torch.float32):
+        g_cpu, m_cpu = accumulate_grads(cfg, p_cpu, batch)
+        g_gpu, m_gpu = accumulate_grads(cfg, _to(p_cpu, cuda), batch)
+    assert abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) <= 1e-5 * abs(
+        float(m_cpu["loss"]))
+    for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu)):
+        assert a.is_cuda
+        top = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * top
+    opt = AdamWConfig(warmup_steps=2, total_steps=10)
+    state = init_train_state(cfg, 0, opt_cfg=opt, device=cuda)
+    before = [t.clone() for t in tree_leaves(state)]
+    new, m = build_train_step(cfg, opt, accum=2, compress=False)(state,
+                                                                 batch)
+    assert np.isfinite(float(m["loss"])) and int(new.opt.step) == 1
+    assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(new))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(state), before))
+
+
+@pytest.mark.gpu
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """A checkpoint restores onto the device of the state it is given:
+    saved from the card, restored onto the card and onto the CPU, bit for
+    bit, bf16 moments included."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_reduced
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train import init_train_state
+    cfg = get_reduced("olmo_1b")
+    opt = AdamWConfig(mu_dtype="bfloat16", nu_dtype="bfloat16")
+    state = init_train_state(cfg, 3, compress=True, opt_cfg=opt, device=cuda)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(4, state)
+    for dev in (cuda, torch.device("cpu")):
+        like = init_train_state(cfg, 0, compress=True, opt_cfg=opt,
+                                device=dev)
+        got, step = mgr.restore(like, verify_crc=True)
+        assert step == 4
+        for a, b in zip(tree_leaves(got), tree_leaves(state)):
+            assert a.device.type == dev.type and a.dtype == b.dtype
+            assert torch.equal(a.cpu(), b.cpu())

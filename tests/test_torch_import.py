@@ -23,7 +23,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "lm = [m for m in ('repro_torch.models.lm', 'repro_torch.configs', "
-        "'repro_torch.data') if m not in sys.modules]\n"
+        "'repro_torch.data', 'repro_torch.train', 'repro_torch.optim', "
+        "'repro_torch.checkpoint', 'repro_torch.runtime') "
+        "if m not in sys.modules]\n"
         "print(len(bad), bad, 'missing', lm)\n"
     )
     out = subprocess.run(
@@ -95,12 +97,20 @@ def test_entry_points_refuse_to_default_to_the_cpu(no_cuda):
     from repro_torch.models import init_cache
     from repro_torch.models.tcam_router import compile_router
     cfg = get_reduced("qwen3_moe_235b_a22b")
+    from types import SimpleNamespace
+
+    from repro_torch import init_train_state, train_state_from_arrays
+    jax_like = SimpleNamespace(
+        params={"embed": np.zeros((2, 2), np.float32)},
+        opt=SimpleNamespace(mu={}, nu={}, step=np.int32(0)), ef=None)
     calls += [
         lambda: init_params(cfg),
         lambda: init_params(cfg, 0, device="cuda"),
         lambda: init_cache(cfg, 1, 8),
         lambda: compile_router(m.compiled.tree),
         lambda: lm_params_from_arrays({"embed": np.zeros((2, 2), np.float32)}),
+        lambda: init_train_state(cfg),
+        lambda: train_state_from_arrays(jax_like),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -111,3 +121,5 @@ def test_entry_points_refuse_to_default_to_the_cpu(no_cuda):
     assert ForestExecutor(forest, engine="mxu", device="cpu").infer(
         Xte).predictions.shape == (len(Xte),)
     assert init_params(cfg, 0, device="cpu")["embed"].device.type == "cpu"
+    assert init_train_state(cfg, 0, device="cpu").opt.step.device.type == \
+        "cpu"
