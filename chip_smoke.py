@@ -3,8 +3,8 @@
 drive the single-tree and forest paths at Give Me Some Credit scale, hold
 each kernel against its plain PyTorch version, serve requests, run the LM
 serving path at qwen3-moe-235b-a22b's width and at the widths of rwkv6,
-whisper and jamba, train olmo-1b at its full width and depth, and print
-what was measured.
+whisper and jamba, train olmo-1b at its full width and depth, unsharded and
+data-parallel on a mesh of one card, and print what was measured.
 
     python3 chip_smoke.py
 
@@ -138,7 +138,23 @@ Phases (any failed check raises, so the script exits non-zero):
    state, whose loss falls by more than ``TRAIN_DECREASE_MARGIN``; one
    timed step each of ``rwkv6_1p6b`` (8 x 512) and ``whisper_small``
    (8 x 448 after 8 x 1500 frames), whole;
-12. the kernels line, the card's name and power limit, and the last line:
+12. sharding (``sharding_phase``), with the kernels' counters zeroed
+   before and read after (none launched): the per-device train state of
+   the ``train_4k`` cell of ``olmo_1b`` and ``qwen3_moe_235b_a22b`` on the
+   (16, 16) and (2, 16, 16) production meshes, from ``input_specs``; an
+   NCCL process group of one (a ``FileStore`` in a temporary directory),
+   ``mesh_for_devices(1)`` and ``make_rules(mesh, dp_only=True)``; olmo-1b
+   whole at phase 11's 8 x 2048, remat and AdamW config: 2 unsharded steps
+   and 2 sharded steps from the same seed, every param, ``mu`` and ``nu``
+   leaf and the losses equal bit for bit (deterministic algorithms on);
+   2 warm-up and 5 sharded steps timed with CUDA events, tokens/s and peak
+   memory beside phase 11's, the bound from ``train_work``; a checkpoint
+   of the sharded state restored with ``restore_resharded`` onto the mesh
+   gives the next step bit for bit; the dry run of ``olmo_1b`` x
+   ``train_4k`` (``launch.dryrun.run_cell``), its per-device FLOPs within
+   ``SHARD_FLOPS_TOL`` of ``sharded_step_flops`` and their ratio to
+   ``train_work``'s reference count;
+13. the kernels line, the card's name and power limit, and the last line:
    ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.
@@ -148,6 +164,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -235,6 +252,10 @@ TRAIN_DECREASE_STEPS = 30    # the loss decreases over these steps of the
 TRAIN_DECREASE_SEQ = 512     # planted-structure stream at 8 x 512
 TRAIN_FAMILIES = {"rwkv6_1p6b": 512,       # one timed step each, whole, at
                   "whisper_small": 448}    # 8 x this (whisper: text context)
+# phase 12: sharding, olmo-1b whole on a mesh of one card (TRAIN_* sizes)
+SHARD_STEPS = 2              # unsharded, then sharded steps from one seed,
+SHARD_FLOPS_TOL = 0.02       # the dry run's FLOPs against sharded_step_flops
+SHARD_STATE_ARCHS = ("olmo_1b", "qwen3_moe_235b_a22b")
 # Tolerances of phase 11 (fixed before its first run on the card):
 TRAIN_LOSS_RTOL = 1e-5       # loss, card vs CPU (f32 compute)
 TRAIN_GRAD_TOL = 1e-4        # grad leaves, card vs CPU and accum 2 vs 1 (f32),
@@ -2507,6 +2528,238 @@ def train_phase(dev, name: str, bw: float) -> dict:
     return out
 
 
+def sharded_step_flops(cfg, batch: int, seq: int) -> int:
+    """The product FLOPs (those ``FlopCounterMode`` counts: mm, bmm) of the
+    port's train step with ``remat="full"`` on ``batch`` x ``seq`` tokens
+    of a model of ``attn+mlp`` layers, worked out from the code: per layer
+    the projections 2t*d*(H+2KV)*hd + 2t*H*hd*d, attention's full-block
+    products 4*batch*seq^2*H*hd (query chunks against every key chunk) and
+    the MLP 6t*d*F; the head 2t*d*V.  The forward runs each once and the
+    backward twice; remat's recompute of each layer runs the layer again
+    but stops before its last product (the MLP's down projection, whose
+    output nothing saved needs), and the query-chunk checkpoint nested in
+    it recomputes attention once more; each loss chunk's head product runs
+    once more in the backward."""
+    t = batch * seq
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    nh, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    proj = 2 * t * d * (nh + 2 * kv) * hd + 2 * t * nh * hd * d
+    attn = 4 * batch * seq * seq * nh * hd
+    mlp = 6 * t * d * f
+    layer = 4 * (proj + mlp) - 2 * t * f * d + 5 * attn
+    return cfg.n_layers * layer + 4 * 2 * t * d * v
+
+
+def sharding_phase(dev, name: str, bw: float, unsharded: dict) -> dict:
+    """Phase 12: the sharding rules and specs, the data-parallel step on a
+    mesh of one card at ``TRAIN_ARCH``'s full width and depth against the
+    unsharded step, a checkpoint of the sharded state restored onto the
+    mesh, and the dry run of its ``train_4k`` cell.  ``unsharded`` is phase
+    11's main record; the match kernels' counters are zeroed before and
+    read after (none launched).  Returns the phase's record."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, get_config, train_settings
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import make_production_mesh, mesh_for_devices
+    from repro_torch.launch.dryrun import run_cell, shard_bytes
+    from repro_torch.models import param_count
+    from repro_torch.models.params import param_shapes
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.sharding import make_rules
+    from repro_torch.train import input_specs
+
+    t_phase = time.perf_counter()
+    zero_counts()
+    out = {"state_bytes_per_device": {}}
+    # -- per-device state of the train_4k cell on the production meshes ----
+    shape = SHAPES["train_4k"]
+    for arch in SHARD_STATE_ARCHS:
+        rec = {}
+        for multi_pod in (False, True):
+            mesh = make_production_mesh(multi_pod=multi_pod)
+            st = train_settings(arch)
+            rules = make_rules(mesh, dp_only=st.get("dp_only", False))
+            specs = input_specs(get_config(arch), shape, rules, st)
+            rec["multipod" if multi_pod else "singlepod"] = sum(
+                shard_bytes(t, rules.sizes)
+                for t in tree_leaves(specs["state"]))
+        out["state_bytes_per_device"][arch] = rec
+    log(json.dumps({"sharding_state_bytes": out["state_bytes_per_device"]}))
+
+    cfg = get_config(TRAIN_ARCH)
+    opt = AdamWConfig(**TRAIN_OPT)
+    peaks = peak_flops(name)
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=LM_SEED)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1,
+            device_id=torch.device("cuda", 0))
+        try:
+            mesh = mesh_for_devices(1)
+            rules = make_rules(mesh, dp_only=True)
+            out.update(sharded_runs(dev, cfg, opt, pipe, rules, bw, peaks,
+                                    unsharded, tmp))
+        finally:
+            dist.destroy_process_group()
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # -- the dry run of the cell -----------------------------------------------
+    t0 = time.perf_counter()
+    rec = run_cell(TRAIN_ARCH, "train_4k", multi_pod=False, save=False)
+    rec["run_s"] = time.perf_counter() - t0
+    per = shape.global_batch // rec["derived"]["work_shards"]
+    want = sharded_step_flops(cfg, per, shape.seq_len)
+    work = train_work(cfg, per, shape.seq_len,
+                      param_count(param_shapes(cfg)), TRAIN_REMAT)["reference"]
+    ref = work["bf16_ops"] + work["f32_ops"]
+    ratio = rec["cost"]["flops"] / want
+    rec["flops_vs_derived"] = ratio
+    rec["flops_vs_train_work"] = rec["cost"]["flops"] / ref
+    log(json.dumps({"dryrun": rec}))
+    check(abs(ratio - 1) <= SHARD_FLOPS_TOL,
+          f"the dry run's FLOPs per device {rec['cost']['flops']:.6g} lie "
+          f"within {SHARD_FLOPS_TOL} of the derived {want:.6g}")
+    out["dryrun"] = rec
+    counts = read_counts()
+    log(f"phase 12 launches: {counts}")
+    check(not any(counts.values()), "the sharded step launches no match "
+          "kernel")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 12: {out['seconds']:.1f} s")
+    return out
+
+
+def sharded_runs(dev, cfg, opt, pipe, rules, bw: float, peaks: tuple,
+                 unsharded: dict, tmp: str) -> dict:
+    """Phase 12 on the mesh of ``rules``: ``SHARD_STEPS`` steps unsharded
+    and sharded from one seed, equal bit for bit; the sharded step timed;
+    a checkpoint of its state restored with ``restore_resharded`` gives
+    the next step bit for bit."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import CheckpointManager, restore_resharded
+    from repro_torch.models import param_count
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train import build_train_step, init_train_state
+
+    def leaves(state):
+        return [t.full_tensor() if isinstance(t, DTensor) else t
+                for t in tree_leaves(state)]
+
+    out = {}
+    plain = build_train_step(cfg, opt, remat=TRAIN_REMAT)
+    step = build_train_step(cfg, opt, rules=rules, remat=TRAIN_REMAT)
+    # -- unsharded and sharded, bit for bit -----------------------------------
+    # the embedding's backward adds with float atomics on the card: both
+    # runs use PyTorch's deterministic algorithms
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        state = init_train_state(cfg, LM_SEED, opt_cfg=opt, device=dev)
+        want_loss = []
+        for i in range(SHARD_STEPS):
+            state, m = plain(state, pipe.batch_at(i))
+            want_loss.append(m["loss"])
+        want = [t.cpu() for t in leaves(state)]
+        del state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = init_train_state(cfg, LM_SEED, opt_cfg=opt, device=dev,
+                                 rules=rules)
+        check(all(isinstance(t, DTensor) for t in tree_leaves(
+            (state.params, state.opt.mu, state.opt.nu))),
+              "the sharded state rests in DTensors")
+        got_loss = []
+        for i in range(SHARD_STEPS):
+            state, m = step(state, pipe.batch_at(i))
+            got_loss.append(m["loss"])
+        got = leaves(state)
+        check(len(got) == len(want) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+              f"every param, mu and nu leaf after {SHARD_STEPS} steps on the "
+              "mesh of one equals the unsharded step's bit for bit")
+        check(all(torch.equal(a, b) for a, b in zip(got_loss, want_loss)),
+              "the losses equal the unsharded step's bit for bit")
+        out["equal"] = {"steps": SHARD_STEPS, "leaves": len(got),
+                        "losses": [float(v) for v in got_loss]}
+        del got, want
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(json.dumps({"sharded_equal": out["equal"]}))
+    # -- the sharded step timed -------------------------------------------------
+    n_params = param_count(state.params)
+    for i in range(SHARD_STEPS, SHARD_STEPS + TRAIN_WARMUP):
+        state, m = step(state, pipe.batch_at(i))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    first = SHARD_STEPS + TRAIN_WARMUP
+    for i in range(first, first + TRAIN_TIMED):
+        (state, m), ms = event_ms(lambda: step(state, pipe.batch_at(i)))
+        times.append(ms)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(v) for v in losses), "every timed loss is finite")
+    work = train_work(cfg, TRAIN_BATCH, TRAIN_SEQ, n_params, TRAIN_REMAT)
+    med = statistics.median(times)
+    out["main"] = {
+        "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+        "mesh": dict(rules.sizes), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "remat": TRAIN_REMAT, "step_ms": times, "step_ms_median": med,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
+        "losses": losses, "max_memory_allocated_GB": peak,
+        "unsharded_step_ms_median": unsharded["step_ms_median"],
+        "unsharded_tokens_per_s": unsharded["tokens_per_s"],
+        "unsharded_max_memory_allocated_GB":
+            unsharded["max_memory_allocated_GB"],
+        "work": work,
+        "bound_ms_by": {w: lm_bound_ms(work[w], bw, peaks) for w in work}}
+    log(json.dumps({"sharded_train": out["main"]}))
+    # -- checkpoint of the sharded state, restored onto the mesh ----------------
+    k = first + TRAIN_TIMED
+    mgr = CheckpointManager(os.path.join(tmp, "ckpt"), keep=1)
+    t0 = time.perf_counter()
+    mgr.save(k, state)
+    save_s = time.perf_counter() - t0
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        nxt, wm = step(state, pipe.batch_at(k))
+        want = [t.cpu() for t in leaves(nxt)]
+        del state, nxt
+        gc.collect()
+        torch.cuda.empty_cache()
+        fresh = init_train_state(cfg, LM_SEED + 1, opt_cfg=opt, device=dev,
+                                 rules=rules)
+        t0 = time.perf_counter()
+        restored, at = restore_resharded(mgr, fresh)
+        restore_s = time.perf_counter() - t0
+        del fresh
+        check(at == k and int(restored.opt.step) == k and all(
+            isinstance(t, DTensor) for t in tree_leaves(restored.params)),
+              f"restored step {k} onto the mesh")
+        nxt, gm = step(restored, pipe.batch_at(k))
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(leaves(nxt), want))
+              and all(torch.equal(gm[n], wm[n]) for n in wm),
+              "the step after the restore equals the step from the saved "
+              "state bit for bit")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["checkpoint"] = {"step": k, "save_s": save_s,
+                         "restore_s": restore_s,
+                         "GB": sum(t.numel() * t.element_size()
+                                   for t in want) / 1e9}
+    log(json.dumps({"sharded_checkpoint": out["checkpoint"]}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2721,9 +2974,14 @@ def main() -> int:
     # -- 11. training at olmo-1b's full width and depth -------------------------
     gc.collect()
     torch.cuda.empty_cache()
-    train_phase(dev, name, bw)
+    trained = train_phase(dev, name, bw)
 
-    # -- 12. result --------------------------------------------------------------
+    # -- 12. sharding: the data-parallel step on a mesh of one, the dry run --
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharding_phase(dev, name, bw, trained["main"])
+
+    # -- 13. result --------------------------------------------------------------
     log(smi)
     log(json.dumps({"kernels": [bitplane, packed, banked]}))
     log(json.dumps({"ok": True, "device": {

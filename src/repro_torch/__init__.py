@@ -20,7 +20,10 @@ The LM serving path of every configuration (``forward``, ``prefill``,
 TCAM decision-tree router in ``repro_torch.models.tcam_router``.  Training
 (``loss_fn`` with its backward through autograd, AdamW, int8 error-feedback
 compression, ``build_train_step`` with accumulation and remat, checkpoints
-in the JAX package's layout, ``FaultTolerantLoop``) runs on the same ops.
+in the JAX package's layout, ``FaultTolerantLoop``) runs on the same ops,
+on one device or data-parallel over a ``DeviceMesh``
+(``repro_torch.sharding`` rules, ``repro_torch.launch`` meshes and the
+per-cell dry run).
 
 Device rule: every entry point takes ``device=None``, which means
 ``"cuda"``; without CUDA it raises unless the caller asks for

@@ -16,6 +16,13 @@ says ``'<V2'``, with manifest dtype ``"bfloat16"``; the port writes and
 reads those words through an ``int16`` view (numpy has no bfloat16 of its
 own).
 
+A sharded state (``DTensor`` leaves over a mesh, from
+``train.init_train_state(..., rules=)``) is saved whole: each leaf is
+gathered on every rank and rank 0 writes the same files one process would.
+Restoring onto a sharded ``state_like`` gives each rank its shards per that
+leaf's mesh and placements, whatever mesh saved it (``restore_resharded``,
+the elastic restart).
+
 Failure semantics:
   * a crash mid-save leaves only a ``.tmp`` dir -> ignored and removed,
   * ``latest_step`` validates the manifest and every leaf file before
@@ -58,6 +65,11 @@ def _save_leaf(path: str, t: torch.Tensor) -> dict:
             "crc": zlib.crc32(arr.tobytes())}
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3):
         self.dir = directory
@@ -66,17 +78,31 @@ class CheckpointManager:
 
     # ----------------------------------------------------------- save
     def save(self, step: int, state) -> str:
+        """Write ``state`` as step ``step``; with ``DTensor`` leaves every
+        rank gathers each leaf, rank 0 writes and the ranks meet at a
+        barrier before returning."""
+        leaves = tree_leaves(state)
+        mesh = next((t.device_mesh for t in leaves if _is_dtensor(t)), None)
+        writer = mesh is None or torch.distributed.get_rank() == 0
         name = f"step_{step:09d}"
         tmp = os.path.join(self.dir, name + ".tmp")
         final = os.path.join(self.dir, name)
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
+        if writer:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
         manifest = {"step": step, "leaves": []}
-        for i, leaf in enumerate(tree_leaves(state)):
+        for i, leaf in enumerate(leaves):
+            if _is_dtensor(leaf):
+                leaf = leaf.full_tensor()
+            if not writer:
+                continue
             path = f"arr_{i:05d}.npy"
             meta = _save_leaf(os.path.join(tmp, path), leaf)
             manifest["leaves"].append({"path": path, **meta})
+        if not writer:
+            torch.distributed.barrier()
+            return final
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
             f.flush()
@@ -85,6 +111,8 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.rename(tmp, final)
         self._gc()
+        if mesh is not None:
+            torch.distributed.barrier()
         return final
 
     # -------------------------------------------------------- restore
@@ -123,7 +151,8 @@ class CheckpointManager:
     def restore(self, state_like, step: Optional[int] = None,
                 *, verify_crc: bool = False):
         """Restore into the structure of ``state_like``; each leaf goes to
-        the device of ``state_like``'s leaf in its place.  Returns
+        the device of ``state_like``'s leaf in its place, and a ``DTensor``
+        leaf to this rank's shards of its mesh and placements.  Returns
         (state, step), or None when no checkpoint is restorable."""
         step = self.latest_step() if step is None else step
         if step is None:
@@ -139,7 +168,12 @@ class CheckpointManager:
             arr = np.load(os.path.join(d, meta["path"]))
             if verify_crc and zlib.crc32(arr.tobytes()) != meta["crc"]:
                 raise IOError(f"crc mismatch in {meta['path']}")
-            out.append(from_numpy(arr, getattr(like, "device", "cpu")))
+            t = from_numpy(arr, getattr(like, "device", "cpu"))
+            if _is_dtensor(like):
+                from torch.distributed.tensor import distribute_tensor
+                t = distribute_tensor(t, like.device_mesh, like.placements,
+                                      src_data_rank=None)
+            out.append(t)
         return tree_unflatten(state_like, out), step
 
     # ------------------------------------------------------ retention
@@ -154,6 +188,7 @@ class CheckpointManager:
 
 
 def restore_resharded(mgr: CheckpointManager, state_like):
-    """Restore the latest checkpoint onto ``state_like``'s devices; on one
-    card there is no mesh to reshard onto, so this is ``mgr.restore``."""
+    """Elastic restore: load the latest checkpoint onto ``state_like``'s
+    devices and, for ``DTensor`` leaves, its meshes and placements; the
+    mesh that saved it does not matter."""
     return mgr.restore(state_like)

@@ -23,8 +23,12 @@ encoder-decoder caches each decoder layer's projected encoder keys and
 values.  ``prefill`` and ``decode_step`` write each layer's slice of the
 stacked caches in place (``copy_`` into the views) and return the same dict.
 
-On one device there is no sharding: the JAX package's ``shard`` annotations
-and its FSDP gather-at-use are no-ops there and have no counterpart here.
+The model code carries no sharding annotations: the JAX package's
+``shard`` calls only constrain layouts for its compiler.  Across devices
+the train step (``train.build_train_step(..., rules=)``) gathers the whole
+param tree before calling ``loss_fn`` (the JAX package's FSDP
+gather-at-use, ``_gather_fsdp``, done once per step instead of per layer)
+and reduce-scatters the gradients itself.
 ``jax.checkpoint`` maps to ``torch.utils.checkpoint`` (``layers.checkpointed``)
 at the same places: a repeat of ``cfg.pattern`` under ``remat``, each loss
 chunk, each attention query chunk, each MoE token group, each mamba and

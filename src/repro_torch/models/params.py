@@ -22,7 +22,8 @@ from ..device import DeviceLike, resolve_device
 from .config import ModelConfig
 from .layers import dense_init
 
-__all__ = ["init_params", "param_logical_axes", "param_count", "kind_specs"]
+__all__ = ["init_params", "param_logical_axes", "param_count", "kind_specs",
+           "param_shapes"]
 
 Init = Union[str, Callable]
 
@@ -181,6 +182,9 @@ def kind_specs(cfg: ModelConfig, kind: str, with_cross: bool = False) -> dict:
 
 def _build(cfg: ModelConfig, gen: torch.Generator | None, *,
            axes_only: bool) -> dict:
+    """The leaves' logical axes (``axes_only``), their f32 shapes on the
+    meta device (``gen`` None: nothing allocated), or the leaves drawn from
+    ``gen`` on its device."""
     def leaf(shape, axes, init, stack: int = 0):
         full_axes = (("layers",) + tuple(axes)) if stack else tuple(axes)
         if axes_only:
@@ -188,9 +192,11 @@ def _build(cfg: ModelConfig, gen: torch.Generator | None, *,
         # stacked leaves are allocated once and filled slice by slice, so the
         # largest leaf never exists twice on the device
         out = torch.empty(((stack,) if stack else ()) + tuple(shape),
-                          dtype=torch.float32, device=gen.device)
-        for sl in (out if stack else (out,)):
-            _fill(gen, sl, init)
+                          dtype=torch.float32,
+                          device="meta" if gen is None else gen.device)
+        if gen is not None:
+            for sl in (out if stack else (out,)):
+                _fill(gen, sl, init)
         return out
 
     d, v = cfg.d_model, cfg.vocab_size
@@ -238,6 +244,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
 
 def param_logical_axes(cfg: ModelConfig) -> dict:
     return _build(cfg, None, axes_only=True)
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter pytree as f32 tensors on the meta device: shapes and
+    dtypes, no memory (the reference's ``jax.eval_shape(init_params)``)."""
+    return _build(cfg, None, axes_only=False)
 
 
 def param_count(params) -> int:

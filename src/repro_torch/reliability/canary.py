@@ -10,7 +10,6 @@ dataset required at serving time.
 
     HEALTHY --canary below threshold--> DEGRADED
     DEGRADED --drift scrub + refresh + canary re-vote ok--> REPAIRED
-               (the server's drift rung is not ported yet)
     DEGRADED --BIST + spare-row repair + canary re-vote ok--> REPAIRED
     DEGRADED/REPAIRED --repair insufficient, 'ref' engine canary ok--> FALLBACK
     otherwise --> FAILED   (still serving, loudly degraded)

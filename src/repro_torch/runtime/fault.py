@@ -10,9 +10,10 @@ few hours.  The loop provides:
     last exception (a crash-looping job must page a human);
   * **straggler mitigation** — per-step wall times feed a rolling median; a
     step slower than ``straggler_factor``x the median is logged and counted.
-    On real pods the mitigation hook triggers re-compilation onto a spare
-    slice (elastic re-mesh via ``checkpoint.restore_resharded``); here the
-    hook is observable + testable;
+    The mitigation hook is observable and testable; the elastic re-mesh
+    it would trigger is ``checkpoint.restore_resharded``, which restores a
+    checkpoint onto a sharded state over any mesh (``DTensor`` leaves),
+    whatever mesh saved it;
   * **preemption handling** — SIGTERM sets a flag; the loop checkpoints and
     exits cleanly at the next step boundary.
 """

@@ -40,7 +40,8 @@ encoder-decoder configs, the mamba and rwkv mixers with carried state, the
 MoE layer and the TCAM router.  Training on the card against the same
 port on the CPU: the loss and every gradient leaf of five reduced configs
 in f32, a whole train step that leaves its input state intact, and a
-checkpoint restored onto the card and onto the CPU.
+checkpoint restored onto the card and onto the CPU; the data-parallel step
+on a mesh of one card against the unsharded step.
 """
 import numpy as np
 import pytest
@@ -1137,3 +1138,54 @@ def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
         for a, b in zip(tree_leaves(got), tree_leaves(state)):
             assert a.device.type == dev.type and a.dtype == b.dtype
             assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.gpu
+def test_mesh_of_one_on_card_equals_unsharded_step(cuda, tmp_path):
+    """The data-parallel step on a mesh of one card (an NCCL process group
+    of one) equals the unsharded step bit for bit over two steps, at
+    olmo-1b's full width on 2 of its 16 layers, under PyTorch's
+    deterministic algorithms (the embedding's backward adds with atomics
+    otherwise); its state rests in ``DTensor``s."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import mesh_for_devices
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.sharding import make_rules
+    from repro_torch.train import build_train_step, init_train_state
+    cfg = dataclasses.replace(get_config("olmo_1b"), n_layers=2)
+    opt = AdamWConfig(warmup_steps=2, total_steps=10)
+    pipe = TokenPipeline(cfg, 2, 256, seed=0)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        rules = make_rules(mesh_for_devices(1), dp_only=True)
+        out = []
+        for r in (None, rules):
+            state = init_train_state(cfg, 0, opt_cfg=opt, device=cuda,
+                                     rules=r)
+            step = build_train_step(cfg, opt, rules=r)
+            losses = []
+            for i in range(2):
+                state, m = step(state, pipe.batch_at(i))
+                losses.append(m["loss"])
+            out.append(([t.full_tensor() if isinstance(t, DTensor) else t
+                         for t in tree_leaves(state)], losses))
+        assert isinstance(state.params["embed"], DTensor)
+        (want, wl), (got, gl) = out
+        assert all(torch.equal(a, b) for a, b in zip(wl, gl))
+        assert len(got) == len(want)
+        assert all(a.is_cuda and torch.equal(a, b)
+                   for a, b in zip(got, want))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()

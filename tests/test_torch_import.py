@@ -24,7 +24,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "('jax', 'jaxlib', 'repro')]\n"
         "lm = [m for m in ('repro_torch.models.lm', 'repro_torch.configs', "
         "'repro_torch.data', 'repro_torch.train', 'repro_torch.optim', "
-        "'repro_torch.checkpoint', 'repro_torch.runtime') "
+        "'repro_torch.checkpoint', 'repro_torch.runtime', "
+        "'repro_torch.sharding', 'repro_torch.launch', "
+        "'repro_torch.launch.dryrun') "
         "if m not in sys.modules]\n"
         "print(len(bad), bad, 'missing', lm)\n"
     )
@@ -100,6 +102,7 @@ def test_entry_points_refuse_to_default_to_the_cpu(no_cuda):
     from types import SimpleNamespace
 
     from repro_torch import init_train_state, train_state_from_arrays
+    from repro_torch.launch import mesh_for_devices
     jax_like = SimpleNamespace(
         params={"embed": np.zeros((2, 2), np.float32)},
         opt=SimpleNamespace(mu={}, nu={}, step=np.int32(0)), ef=None)
@@ -111,6 +114,7 @@ def test_entry_points_refuse_to_default_to_the_cpu(no_cuda):
         lambda: lm_params_from_arrays({"embed": np.zeros((2, 2), np.float32)}),
         lambda: init_train_state(cfg),
         lambda: train_state_from_arrays(jax_like),
+        lambda: mesh_for_devices(1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
