@@ -139,10 +139,11 @@ Phases (any failed check raises, so the script exits non-zero):
    timed step each of ``rwkv6_1p6b`` (8 x 512) and ``whisper_small``
    (8 x 448 after 8 x 1500 frames), whole;
 12. sharding (``sharding_phase``), with the kernels' counters zeroed
-   before and read after (none launched): the per-device train state of
+   before and read after (none launched), on an NCCL process group of one
+   (a ``FileStore`` in a temporary directory) that phase 13 reuses: the
+   per-device train state of
    the ``train_4k`` cell of ``olmo_1b`` and ``qwen3_moe_235b_a22b`` on the
-   (16, 16) and (2, 16, 16) production meshes, from ``input_specs``; an
-   NCCL process group of one (a ``FileStore`` in a temporary directory),
+   (16, 16) and (2, 16, 16) production meshes, from ``input_specs``;
    ``mesh_for_devices(1)`` and ``make_rules(mesh, dp_only=True)``; olmo-1b
    whole at phase 11's 8 x 2048, remat and AdamW config: 2 unsharded steps
    and 2 sharded steps from the same seed, every param, ``mu`` and ``nu``
@@ -154,7 +155,21 @@ Phases (any failed check raises, so the script exits non-zero):
    ``train_4k`` (``launch.dryrun.run_cell``), its per-device FLOPs within
    ``SHARD_FLOPS_TOL`` of ``sharded_step_flops`` and their ratio to
    ``train_work``'s reference count;
-13. the kernels line, the card's name and power limit, and the last line:
+13. sharded serving (``serving_phase``), with the kernels' counters zeroed
+   before and read after (none launched): the per-device param and cache
+   bytes of ``prefill_32k`` and ``decode_32k`` for ``qwen3_moe_235b_a22b``
+   and ``olmo_1b`` on the (16, 16) mesh, from ``input_specs``;
+   ``mesh_for_devices(1)`` and ``make_rules(mesh)`` (the serving rules,
+   heads, MLP, experts and vocab on "model"); phase 9's model (4 of 94
+   layers of ``LM_ARCH`` at every published width, ``LM_SEED``) held once
+   and as ``shard_params`` of the same tensors; ``build_prefill_step``/
+   ``build_decode_step`` with the rules against the same builders without:
+   a prefill of 2 x 256 and 32 greedy decode steps in f32 compute, then
+   8 x 2048 and 32 steps in bf16 as served, logits of every stage and
+   every cache leaf equal bit for bit; both bf16 runs timed with CUDA
+   events (prefill, decode ms a step, peak memory) beside phase 9's
+   figures and ``lm_work``'s bounds;
+14. the kernels line, the card's name and power limit, and the last line:
    ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.
@@ -256,6 +271,11 @@ TRAIN_FAMILIES = {"rwkv6_1p6b": 512,       # one timed step each, whole, at
 SHARD_STEPS = 2              # unsharded, then sharded steps from one seed,
 SHARD_FLOPS_TOL = 0.02       # the dry run's FLOPs against sharded_step_flops
 SHARD_STATE_ARCHS = ("olmo_1b", "qwen3_moe_235b_a22b")
+# phase 13: sharded serving, LM_ARCH at LM_LAYERS on a mesh of one card
+# under the serving rules, at phase 9's sizes (LM_BATCH, LM_PROMPT,
+# LM_DECODE; the f32 check at LM_CHECK_BATCH x LM_CHECK_SEQ)
+SERVE_BYTES_ARCHS = ("qwen3_moe_235b_a22b", "olmo_1b")
+SERVE_BYTES_SHAPES = ("prefill_32k", "decode_32k")
 # Tolerances of phase 11 (fixed before its first run on the card):
 TRAIN_LOSS_RTOL = 1e-5       # loss, card vs CPU (f32 compute)
 TRAIN_GRAD_TOL = 1e-4        # grad leaves, card vs CPU and accum 2 vs 1 (f32),
@@ -2550,17 +2570,17 @@ def sharded_step_flops(cfg, batch: int, seq: int) -> int:
     return cfg.n_layers * layer + 4 * 2 * t * d * v
 
 
-def sharding_phase(dev, name: str, bw: float, unsharded: dict) -> dict:
+def sharding_phase(dev, name: str, bw: float, unsharded: dict,
+                   tmp: str) -> dict:
     """Phase 12: the sharding rules and specs, the data-parallel step on a
     mesh of one card at ``TRAIN_ARCH``'s full width and depth against the
     unsharded step, a checkpoint of the sharded state restored onto the
     mesh, and the dry run of its ``train_4k`` cell.  ``unsharded`` is phase
     11's main record; the match kernels' counters are zeroed before and
-    read after (none launched).  Returns the phase's record."""
-    import tempfile
-
+    read after (none launched).  It runs on the NCCL process group of one
+    that ``main`` holds for phases 12 and 13; ``tmp`` is a scratch
+    directory.  Returns the phase's record."""
     import torch
-    import torch.distributed as dist
 
     from repro_torch.configs import SHAPES, get_config, train_settings
     from repro_torch.data import TokenPipeline
@@ -2595,21 +2615,12 @@ def sharding_phase(dev, name: str, bw: float, unsharded: dict) -> dict:
     opt = AdamWConfig(**TRAIN_OPT)
     peaks = peak_flops(name)
     pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=LM_SEED)
-    (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        torch.cuda.set_device(0)
-        dist.init_process_group("nccl", store=dist.FileStore(
-            os.path.join(tmp, "store"), 1), rank=0, world_size=1,
-            device_id=torch.device("cuda", 0))
-        try:
-            mesh = mesh_for_devices(1)
-            rules = make_rules(mesh, dp_only=True)
-            out.update(sharded_runs(dev, cfg, opt, pipe, rules, bw, peaks,
-                                    unsharded, tmp))
-        finally:
-            dist.destroy_process_group()
-            gc.collect()
-            torch.cuda.empty_cache()
+    mesh = mesh_for_devices(1)
+    rules = make_rules(mesh, dp_only=True)
+    out.update(sharded_runs(dev, cfg, opt, pipe, rules, bw, peaks,
+                            unsharded, tmp))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- the dry run of the cell -----------------------------------------------
     t0 = time.perf_counter()
@@ -2757,6 +2768,190 @@ def sharded_runs(dev, cfg, opt, pipe, rules, bw: float, peaks: tuple,
                          "GB": sum(t.numel() * t.element_size()
                                    for t in want) / 1e9}
     log(json.dumps({"sharded_checkpoint": out["checkpoint"]}))
+    return out
+
+
+def served(prefill_step, decode_step, params, cfg, toks, steps: int,
+           dtype, rules=None) -> dict:
+    """``prefill_step`` of ``toks`` on fresh caches (after one warm-up
+    prefill on them) and ``steps`` greedy decode steps, each timed with
+    CUDA events: every stage's whole logits, the whole caches at the end,
+    the times and the peak memory over the timed calls."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import init_cache
+    from repro_torch.pytree import tree_leaves
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    b, s = toks.shape
+    caches = init_cache(cfg, b, s + steps, dtype=dtype, device=toks.device,
+                        rules=rules)
+    prefill_step(params, {"tokens": toks}, caches)     # warm-up, same shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (logits, caches), prefill_ms = event_ms(
+        lambda: prefill_step(params, {"tokens": toks}, caches))
+    seen = [whole(logits).clone()]
+    step_ms = []
+    for i in range(steps):
+        tok = seen[-1].argmax(-1)
+        (logits, caches), ms = event_ms(
+            lambda: decode_step(params, tok, caches, s + i))
+        step_ms.append(ms)
+        seen.append(whole(logits).clone())
+    return {"logits": seen, "caches": [whole(t) for t in tree_leaves(caches)],
+            "prefill_ms": prefill_ms, "step_ms": step_ms,
+            "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def serving_phase(dev, name: str, bw: float, unsharded: dict) -> dict:
+    """Phase 13: sharded serving of ``LM_ARCH`` at its published widths,
+    cut to ``LM_LAYERS`` layers, on a mesh of one card under the serving
+    rules (``make_rules(mesh)``), over the NCCL process group of one that
+    phase 12 ran on: ``build_prefill_step``/``build_decode_step`` with the
+    rules against the same builders without, on the same tensors
+    (``shard_params``), bit for bit in bf16 as served and in f32 compute;
+    both timed in the same call beside phase 9's figures (``unsharded``,
+    its serve record) and ``lm_work``'s bounds; the per-device param and
+    cache bytes of the serving cells on the production mesh.  The match
+    kernels' counters are zeroed before and read after (none launched)."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch import make_production_mesh, mesh_for_devices
+    from repro_torch.launch.dryrun import shard_bytes
+    from repro_torch.models import init_params, lm, moe
+    from repro_torch.models.params import shard_params
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.sharding import make_rules
+    from repro_torch.train import (build_decode_step, build_prefill_step,
+                                   input_specs)
+
+    t_phase = time.perf_counter()
+    zero_counts()
+    out = {}
+    # -- per-device bytes of the serving cells on the production mesh -------
+    prod = make_rules(make_production_mesh())
+    per = {}
+    for arch in SERVE_BYTES_ARCHS:
+        for cell in SERVE_BYTES_SHAPES:
+            specs = input_specs(get_config(arch), SHAPES[cell], prod)
+            kind = next(iter(specs["caches"]))
+            per[f"{arch}/{cell}"] = {
+                what: sum(shard_bytes(t, prod.sizes)
+                          for t in tree_leaves(specs[what]))
+                for what in ("params", "caches")}
+            per[f"{arch}/{cell}"]["k_cache_spec"] = \
+                specs["caches"][kind]["k"].spec
+    out["bytes_per_device"] = per
+    log(json.dumps({"serving_bytes_per_device": {
+        "mesh": prod.sizes, **per}}))
+
+    # -- the model held once, unsharded and as shards of the same tensors ---
+    mesh = mesh_for_devices(1)
+    rules = make_rules(mesh)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    params, t_init = sync_time(lambda: init_params(cfg, LM_SEED, device=dev))
+    sharded = shard_params(params, cfg, rules)
+    check(all(isinstance(b, DTensor) and a.data_ptr()
+              == b.to_local().data_ptr() for a, b in zip(
+                  tree_leaves(params), tree_leaves(sharded))),
+          "on a mesh of one the param shards are the unsharded tensors")
+    steps = {None: (build_prefill_step(cfg), build_decode_step(cfg)),
+             "mesh": (build_prefill_step(cfg, rules),
+                      build_decode_step(cfg, rules))}
+    log(f"sharded serving: {cfg.name}, {cfg.n_layers} layers, mesh "
+        f"{rules.sizes}, init {t_init:.2f} s")
+
+    def both(toks, n, dtype):
+        runs = {}
+        for which, p, r in ((None, params, None), ("mesh", sharded, rules)):
+            runs[which] = served(*steps[which], p, cfg, toks, n, dtype, r)
+            gc.collect()
+        want, got = runs[None], runs["mesh"]
+        check(len(got["caches"]) == len(want["caches"]) and all(
+            torch.equal(a, b) for a, b in zip(got["caches"], want["caches"])),
+              f"{dtype}: every cache leaf after prefill and {n} decode steps "
+              "on the mesh of one equals the unsharded path's bit for bit")
+        check(all(torch.equal(a, b)
+                  for a, b in zip(got["logits"], want["logits"])),
+              f"{dtype}: prefill's and every decode step's logits equal the "
+              "unsharded path's bit for bit")
+        check(all(bool(torch.isfinite(t).all()) for t in got["logits"]),
+              f"{dtype}: every logit is finite")
+        return runs
+
+    # -- f32 compute at the check size, then bf16 as served, timed ----------
+    ctoks = torch.from_numpy(make_batch(cfg, LM_CHECK_BATCH, LM_CHECK_SEQ,
+                                        seed=LM_SEED)["tokens"]).to(dev)
+    with mock.patch.object(lm, "COMPUTE_DTYPE", torch.float32):
+        both(ctoks, LM_DECODE, torch.float32)
+    out["equal"] = {"float32": [LM_CHECK_BATCH, LM_CHECK_SEQ, LM_DECODE]}
+    toks = torch.from_numpy(make_batch(cfg, LM_BATCH, LM_PROMPT, step=1,
+                                       seed=LM_SEED)["tokens"]).to(dev)
+    runs = both(toks, LM_DECODE, torch.bfloat16)
+    out["equal"]["bfloat16"] = [LM_BATCH, LM_PROMPT, LM_DECODE]
+    log(json.dumps({"sharded_serving_equal": out["equal"]}))
+
+    # -- the bounds: phase 9's, from this run's experts --------------------
+    picks = []
+    caches = lm.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_DECODE, device=dev)
+    last = runs[None]["logits"][-2].argmax(-1)
+    with mock.patch.object(moe, "route", recorded_route(picks)):
+        steps[None][1](params, last, caches, LM_PROMPT + LM_DECODE - 1)
+    experts_read = sum(int(torch.unique(r).numel())
+                       for r in torch.cat(picks).reshape(cfg.n_layers, -1))
+    del caches, picks
+    w_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    no_embed = w_bytes - params["embed"].numel() * 4
+    peaks = peak_flops(name)
+    pre_work = lm_work(cfg, no_embed, LM_BATCH, LM_PROMPT)
+    dec_work = lm_work(cfg, no_embed, LM_BATCH, 1, LM_PROMPT + LM_DECODE,
+                       experts_read)
+    bounds = {f"{stage}_{what}": lm_bound_ms(work[what], bw, peaks)
+              for stage, work in (("prefill", pre_work), ("decode", dec_work))
+              for what in ("reference", "function")}
+    timed = {}
+    for which, label in ((None, "unsharded"), ("mesh", "sharded")):
+        r = runs[which]
+        timed[label] = {
+            "prefill_ms": r["prefill_ms"],
+            "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / r["prefill_ms"]
+            * 1e3,
+            "decode_ms_per_step_median": statistics.median(r["step_ms"]),
+            "decode_ms_per_step_mean": statistics.mean(r["step_ms"]),
+            "max_memory_allocated_GB": r["peak_GB"]}
+    out["serve"] = {
+        "arch": cfg.name, "layers": cfg.n_layers, "mesh": dict(rules.sizes),
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": LM_DECODE,
+        **timed,
+        "sharded_over_unsharded": {
+            "prefill": timed["sharded"]["prefill_ms"]
+            / timed["unsharded"]["prefill_ms"],
+            "decode": timed["sharded"]["decode_ms_per_step_median"]
+            / timed["unsharded"]["decode_ms_per_step_median"]},
+        "phase9": {k: unsharded[k] for k in (
+            "prefill_ms", "decode_ms_per_step_median",
+            "max_memory_allocated_GB")},
+        "decode_experts_read": experts_read, "bound_ms_by": bounds}
+    log(json.dumps({"sharded_serve": out["serve"]}))
+    del params, sharded, runs, toks, ctoks
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = read_counts()
+    log(f"phase 13 launches: {counts}")
+    check(not any(counts.values()), "sharded serving launches no match "
+          "kernel")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13: {out['seconds']:.1f} s")
     return out
 
 
@@ -2964,7 +3159,7 @@ def main() -> int:
     # -- 9. the LM serving path at full width ------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
-    lm_phase(dev, name, bw)
+    served_lm = lm_phase(dev, name, bw)
 
     # -- 10. the recurrent and encoder-decoder families at full width -------
     gc.collect()
@@ -2976,12 +3171,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained = train_phase(dev, name, bw)
 
-    # -- 12. sharding: the data-parallel step on a mesh of one, the dry run --
+    # -- 12. sharding: the data-parallel step on a mesh of one, the dry run;
+    # -- 13. sharded serving on the same NCCL process group of one ----------
+    import tempfile
+
+    import torch.distributed as dist
     gc.collect()
     torch.cuda.empty_cache()
-    sharding_phase(dev, name, bw, trained["main"])
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1,
+            device_id=torch.device("cuda", 0))
+        try:
+            sharding_phase(dev, name, bw, trained["main"], tmp)
+            gc.collect()
+            torch.cuda.empty_cache()
+            serving_phase(dev, name, bw, served_lm["serve"])
+        finally:
+            dist.destroy_process_group()
 
-    # -- 13. result --------------------------------------------------------------
+    # -- 14. result --------------------------------------------------------------
     log(smi)
     log(json.dumps({"kernels": [bitplane, packed, banked]}))
     log(json.dumps({"ok": True, "device": {

@@ -131,9 +131,12 @@ def forest_from_arrays(z: Mapping[str, np.ndarray],
     )
 
 
-def lm_params_from_arrays(tree, *, device: DeviceLike = None):
+def lm_params_from_arrays(tree, *, device: DeviceLike = None, cfg=None,
+                          rules=None):
     """The port's LM params from the JAX package's, given as numpy arrays
-    in nested dicts; tensors on ``device`` (default: the card)."""
+    in nested dicts; tensors on ``device`` (default: the card).  With
+    ``rules`` over a ``DeviceMesh`` (and the model's ``cfg``), this rank's
+    ``DTensor`` shards of them (``models.params.shard_params``)."""
     dev = resolve_device(device)
 
     def conv(t):
@@ -141,7 +144,10 @@ def lm_params_from_arrays(tree, *, device: DeviceLike = None):
             return {k: conv(v) for k, v in t.items()}
         return from_numpy(np.asarray(t), dev)   # never shares the buffer
 
-    return conv(tree)
+    if rules is None:
+        return conv(tree)
+    from .models.params import shard_params
+    return shard_params(conv(tree), cfg, rules)
 
 
 def train_state_from_arrays(state, *, device: DeviceLike = None):

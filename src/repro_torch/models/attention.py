@@ -106,17 +106,28 @@ def decode_attention(
     pos: int,                # position of the new token
     *,
     window: int = 0,
+    scale: float | None = None,   # default hd ** -0.5
+    scores_sum=None,         # sums partial scores over the ranks sharing hd
 ) -> torch.Tensor:
+    """One query token against the cache.  Sharded over ``head_dim``
+    (``q`` and the caches hold this rank's columns of it), the products
+    over the local columns are partial scores, which ``scores_sum`` adds
+    up over the ranks before the softmax; ``scale`` is then the whole head
+    dim's.  The output holds the same columns."""
     b, _, h, hd = q.shape
     _, s, kv, _ = cache_k.shape
     g = h // kv
-    scale = hd ** -0.5
+    if scale is None:
+        scale = hd ** -0.5
     # The reference multiplies the storage-dtype (bf16) operands with f32
     # accumulation.  A bf16 x bf16 product is exact in f32, so f32 operands
     # give the same f32 scores; the probabilities are rounded to the cache's
     # dtype before the second product, as there.
     qg = q.reshape(b, kv, g, hd).float()
-    s_ = torch.einsum("bkgh,bskh->bkgs", qg, cache_k.float()) * scale
+    s_ = torch.einsum("bkgh,bskh->bkgs", qg, cache_k.float())
+    if scores_sum is not None:
+        s_ = scores_sum(s_)
+    s_ = s_ * scale
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if window > 0:
         valid &= slot_pos > pos - window

@@ -101,9 +101,11 @@ def act_fn(g: torch.Tensor, act: str) -> torch.Tensor:
     return F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
 
 
-def mlp(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
-    """Gated MLP (SwiGLU / GeGLU): (w_gate, w_up) -> act(g) * u -> w_down."""
+def mlp(x: torch.Tensor, p: dict, act: str, reduce=None) -> torch.Tensor:
+    """Gated MLP (SwiGLU / GeGLU): (w_gate, w_up) -> act(g) * u -> w_down.
+    Sharded over its hidden dim, ``reduce`` sums the partial outputs."""
     dt = x.dtype
     g = x @ p["w_gate"].to(dt)
     u = x @ p["w_up"].to(dt)
-    return (act_fn(g, act) * u) @ p["w_down"].to(dt)
+    out = (act_fn(g, act) * u) @ p["w_down"].to(dt)
+    return out if reduce is None else reduce(out)

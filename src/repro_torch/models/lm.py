@@ -28,7 +28,19 @@ The model code carries no sharding annotations: the JAX package's
 the train step (``train.build_train_step(..., rules=)``) gathers the whole
 param tree before calling ``loss_fn`` (the JAX package's FSDP
 gather-at-use, ``_gather_fsdp``, done once per step instead of per layer)
-and reduce-scatters the gradients itself.
+and reduce-scatters the gradients itself.  Sharded serving
+(``prefill``/``decode_step`` with ``shards=``, a
+``sharding.collectives.Shards``) runs one rank's part of the step on its
+rows of the batch, its param shards (``models.params.shard_params``) and
+its cache shards (``init_cache(..., rules=)``), with the collectives
+explicit: each layer's weights gathered over "data" at use, the
+vocab-parallel embedding and head, the query heads (and their kv heads)
+of this rank with the output projection's partial sums all-reduced over
+"model", decode over a cache whose ``head_dim`` is split by all-reducing
+the partial query-key scores, the MLP's ``mlp`` columns and the MoE's
+experts (``moe.moe_ffn``) split over "model".  Without ``shards`` the
+path is the unsharded one, and on a mesh of one the sharded path runs the
+same operations on the same tensors.
 ``jax.checkpoint`` maps to ``torch.utils.checkpoint`` (``layers.checkpointed``)
 at the same places: a repeat of ``cfg.pattern`` under ``remat``, each loss
 chunk, each attention query chunk, each MoE token group, each mamba and
@@ -42,6 +54,7 @@ import dataclasses
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..sharding.collectives import Shards
 from .attention import decode_attention, flash_attention
 from .config import ModelConfig
 from .layers import (COMPUTE_DTYPE, checkpointed, mlp, nonparam_norm,
@@ -51,7 +64,7 @@ from .moe import moe_ffn
 from .rwkv import init_rwkv_state, rwkv_channel_mix, rwkv_mixer
 
 __all__ = ["forward", "loss_fn", "prefill", "decode_step", "init_cache",
-           "encode_audio"]
+           "encode_audio", "cache_logical_axes"]
 
 
 @dataclasses.dataclass
@@ -63,6 +76,37 @@ class Ctx:
     prefix_len: int = 0
     enc_out: torch.Tensor | None = None   # encdec: encoder activations
     causal: bool = True
+    shards: Shards | None = None      # sharded serving: this rank's part
+
+
+def _w(shards: Shards | None, a, idx: int | None = None):
+    """Param leaf ``a`` (slice ``idx`` of a stacked one) as it is used:
+    itself unsharded, else this rank's shard gathered over "data"."""
+    if shards is None:
+        return a if idx is None else a[idx]
+    return shards.at_use(a, idx)
+
+
+def _span(w: torch.Tensor, dim: int, lo: int, n: int, size: int):
+    """Entries [lo, lo + n) of ``w``'s ``dim``, in blocks of ``size``; ``w``
+    itself where that is all of it."""
+    if lo == 0 and n * size == w.shape[dim]:
+        return w
+    return w.narrow(dim, lo * size, n * size)
+
+
+def _kv_serving(t: torch.Tensor, q0: int, nq: int, k0: int, g: int):
+    """The kv heads of ``t`` (B, S, n, hd), which holds the model's kv
+    heads from ``k0`` on, that query heads [q0, q0 + nq) read under
+    grouped-query attention (``g`` query heads a kv head), laid out so that
+    attention pairs local query head ``j`` with kv head ``j // (nq / n)``
+    of the result: a slice where the query heads cover whole groups or lie
+    in one, else one kv head per query head."""
+    lo, hi = q0 // g, (q0 + nq - 1) // g + 1
+    if nq % g == 0 or g % nq == 0:
+        return _span(t, 2, lo - k0, hi - lo, 1)
+    idx = (torch.arange(q0, q0 + nq, device=t.device) // g) - k0
+    return t.index_select(2, idx)
 
 
 def _norm(x, scale, cfg: ModelConfig):
@@ -87,42 +131,79 @@ def _cache_len(cfg: ModelConfig, mixer: str, max_seq: int) -> int:
 # mixers
 # ---------------------------------------------------------------------------
 def _attention_mixer(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
+    """Self-attention.  Sharded, a rank computes query heads [q0, q0 + nq)
+    and kv heads [k0, k0 + nk) (all of them where "model" does not divide
+    the count), writes its part of the cache (its kv heads, or its
+    ``head_dim`` columns of every kv head), and its output projection is a
+    partial sum over "model".  Decode over a cache whose ``head_dim`` is
+    split runs every head on the rank's columns, its query-key scores
+    summed over "model"."""
     mixer = kind.split("+")[0]
     window = cfg.sliding_window if mixer == "swa" else 0
     b, s, d = h.shape
     nh, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = h.dtype
+    sh = ctx.shards
+    q0, nq = (0, nh) if sh is None else sh.local("act_heads", nh)
+    k0, nk = (0, kv) if sh is None else sh.local("act_kv_heads", kv)
+    # the cache's head_dim columns this rank holds: all, or its share
+    hdc = hd if cache is None else cache["k"].shape[-1]
+    h0 = 0 if hdc == hd else sh.rank("model") * hdc
+    split_hd = ctx.mode == "decode" and hdc < hd
+    if split_hd:
+        q0, nq = 0, nh          # every head, on this rank's columns
     x = _norm(h, p["norm1"], cfg)
-    q = (x @ p["wq"].to(dt)).reshape(b, s, nh, hd)
-    k = (x @ p["wk"].to(dt)).reshape(b, s, kv, hd)
-    v = (x @ p["wv"].to(dt)).reshape(b, s, kv, hd)
+    q = (x @ _span(p["wq"], 1, q0, nq, hd).to(dt)).reshape(b, s, nq, hd)
+    k = (x @ _span(p["wk"], 1, k0, nk, hd).to(dt)).reshape(b, s, nk, hd)
+    v = (x @ _span(p["wv"], 1, k0, nk, hd).to(dt)).reshape(b, s, nk, hd)
     q = _qk_headnorm(q, p, cfg, "q_norm")
     k = _qk_headnorm(k, p, cfg, "k_norm")
     if cfg.rope_theta > 0:
         q = rope(q, ctx.sin, ctx.cos)
         k = rope(k, ctx.sin, ctx.cos)
+    g = nh // kv
 
     if ctx.mode == "decode":
         clen = cache["k"].shape[1]
         slot = ctx.pos % clen
-        cache["k"][:, slot:slot + 1] = k.to(cache["k"].dtype)
-        cache["v"][:, slot:slot + 1] = v.to(cache["v"].dtype)
+        cache["k"][:, slot:slot + 1] = _span(k, 3, h0, hdc, 1).to(
+            cache["k"].dtype)
+        cache["v"][:, slot:slot + 1] = _span(v, 3, h0, hdc, 1).to(
+            cache["v"].dtype)
         cache["slot_pos"][slot] = ctx.pos
-        o = decode_attention(q, cache["k"], cache["v"], cache["slot_pos"],
-                             ctx.pos, window=window)
+        if split_hd:
+            o = decode_attention(
+                _span(q, 3, h0, hdc, 1), cache["k"], cache["v"],
+                cache["slot_pos"], ctx.pos, window=window, scale=hd ** -0.5,
+                scores_sum=lambda t: sh.sum(t, "model"))
+        else:
+            o = decode_attention(
+                q, _kv_serving(cache["k"], q0, nq, k0, g),
+                _kv_serving(cache["v"], q0, nq, k0, g), cache["slot_pos"],
+                ctx.pos, window=window)
     else:
-        o = flash_attention(q, k, v, causal=ctx.causal, window=window,
-                            prefix_len=ctx.prefix_len)
+        o = flash_attention(q, _kv_serving(k, q0, nq, k0, g),
+                            _kv_serving(v, q0, nq, k0, g), causal=ctx.causal,
+                            window=window, prefix_len=ctx.prefix_len)
         if ctx.mode == "prefill":
             clen = cache["k"].shape[1]
             keep = min(s, clen)
             pos_keep = torch.arange(keep, device=h.device) + (s - keep)
             slots = pos_keep % clen
-            cache["k"][:, slots] = k[:, s - keep:].to(cache["k"].dtype)
-            cache["v"][:, slots] = v[:, s - keep:].to(cache["v"].dtype)
+            cache["k"][:, slots] = _span(k[:, s - keep:], 3, h0, hdc, 1).to(
+                cache["k"].dtype)
+            cache["v"][:, slots] = _span(v[:, s - keep:], 3, h0, hdc, 1).to(
+                cache["v"].dtype)
             cache["slot_pos"][slots] = pos_keep.to(cache["slot_pos"].dtype)
 
-    out = o.reshape(b, s, nh * hd) @ p["wo"].to(dt)
+    wo = p["wo"]
+    if split_hd:
+        wo = _span(wo.reshape(nh, hd, d), 1, h0, hdc, 1).reshape(-1, d)
+    else:
+        wo = _span(wo, 0, q0, nq, hd)
+    out = o.reshape(b, s, -1) @ wo.to(dt)
+    if wo.shape[0] < nh * hd:        # a partial sum of this rank's heads
+        out = sh.sum(out, "model")
     return h + out
 
 
@@ -185,12 +266,15 @@ def _apply_block(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
 
     x = _norm(h, p["norm2"], cfg)
     if ffn == "mlp":
-        h = h + mlp(x, p, cfg.mlp_act)
+        # sharded over "mlp", w_down's products are partial sums
+        split = p["w_down"].shape[0] < cfg.d_ff
+        h = h + mlp(x, p, cfg.mlp_act, reduce=(
+            (lambda t: ctx.shards.sum(t, "model")) if split else None))
     elif ffn == "moe":
         # as the reference (``repro/models/lm.py:194``): no router bits are
         # passed, so a model configured with router="tcam_dt" fails moe_ffn's
         # assertion; the TCAM router is reached through moe_ffn directly
-        h = h + moe_ffn(x, p, cfg)
+        h = h + moe_ffn(x, p, cfg, shards=ctx.shards)
     elif ffn == "cmix":
         if ctx.mode == "full":
             h = h + rwkv_channel_mix(x, p, cfg)
@@ -218,7 +302,9 @@ def _run_blocks(cfg: ModelConfig, blocks: dict, caches, h, ctx: Ctx,
         for kind in cfg.pattern:
             idx = r * occ_per[kind] + counters[kind]
             counters[kind] += 1
-            p_i = {name: a[idx] for name, a in blocks[kind].items()}
+            # sharded: this layer's weights gathered at use, freed after it
+            p_i = {name: _w(ctx.shards, a, idx)
+                   for name, a in blocks[kind].items()}
             c_i = (None if caches is None else
                    {name: a[idx] for name, a in caches[kind].items()})
             h = _apply_block(kind, h, p_i, cfg, ctx, c_i)
@@ -232,10 +318,14 @@ def _run_blocks(cfg: ModelConfig, blocks: dict, caches, h, ctx: Ctx,
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
-def _embed(params, cfg: ModelConfig, tokens, frontend=None):
-    table = params["embed"]
+def _embed(params, cfg: ModelConfig, tokens, frontend=None,
+           shards: Shards | None = None):
+    table = _w(shards, params["embed"])
     tokens = torch.as_tensor(tokens, device=table.device).long()
-    h = table[tokens].to(COMPUTE_DTYPE)
+    if table.shape[0] < cfg.vocab_size:     # rows split over "model"
+        h = shards.lookup(table, tokens).to(COMPUTE_DTYPE)
+    else:
+        h = table[tokens].to(COMPUTE_DTYPE)
     if cfg.emb_scale:
         # sqrt(d_model) is rounded to bf16 before the multiply, as there
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=COMPUTE_DTYPE,
@@ -246,8 +336,11 @@ def _embed(params, cfg: ModelConfig, tokens, frontend=None):
     return h
 
 
-def _logits(params, cfg: ModelConfig, h):
-    return h @ _head(params, cfg).to(h.dtype)
+def _logits(params, cfg: ModelConfig, h, shards: Shards | None = None):
+    """Logits of ``h``; sharded, this rank's vocab columns as the
+    ``DTensor`` of the global logits."""
+    out = h @ _head(params, cfg, shards).to(h.dtype)
+    return out if shards is None else shards.logits(out, cfg.vocab_size)
 
 
 def _rope_tables(cfg: ModelConfig, positions):
@@ -256,19 +349,21 @@ def _rope_tables(cfg: ModelConfig, positions):
     return rope_table(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def _encode(params, cfg: ModelConfig, frames, remat: str):
+def _encode(params, cfg: ModelConfig, frames, remat: str,
+            shards: Shards | None = None):
     enc = params["encoder"]
     if frames is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: pass frames=")
-    frames = torch.as_tensor(frames, device=enc["pos_emb"].device)
-    h = frames.to(COMPUTE_DTYPE) + enc["pos_emb"][None].to(COMPUTE_DTYPE)
+    pos_emb = _w(shards, enc["pos_emb"])
+    frames = torch.as_tensor(frames, device=pos_emb.device)
+    h = frames.to(COMPUTE_DTYPE) + pos_emb[None].to(COMPUTE_DTYPE)
     cfg_enc = dataclasses.replace(cfg, encoder_layers=0,
                                   n_layers=cfg.encoder_layers,
                                   pattern=("attn+mlp",))
     sin, cos = _rope_tables(cfg, torch.arange(h.shape[1], device=h.device))
-    ctx = Ctx(mode="full", sin=sin, cos=cos, causal=False)
+    ctx = Ctx(mode="full", sin=sin, cos=cos, causal=False, shards=shards)
     h = _run_blocks(cfg_enc, enc["blocks"], None, h, ctx, remat=remat)
-    return _norm(h, enc["final_norm"], cfg)
+    return _norm(h, _w(shards, enc["final_norm"]), cfg)
 
 
 @torch.no_grad()
@@ -280,14 +375,15 @@ def encode_audio(params, cfg: ModelConfig, frames):
 
 
 def _start(params, cfg: ModelConfig, tokens, frontend, frames,
-           remat: str = "none"):
+           remat: str = "none", shards: Shards | None = None):
     """The encoder's output (encoder-decoder only) and the embedded tokens
     with the decoder's positions added."""
-    enc_out = (_encode(params, cfg, frames, remat) if cfg.is_encdec
+    enc_out = (_encode(params, cfg, frames, remat, shards) if cfg.is_encdec
                else None)
-    h = _embed(params, cfg, tokens, frontend)
+    h = _embed(params, cfg, tokens, frontend, shards)
     if cfg.is_encdec:
-        h = h + params["dec_pos_emb"][None, :h.shape[1]].to(h.dtype)
+        h = h + _w(shards, params["dec_pos_emb"])[None, :h.shape[1]].to(
+            h.dtype)
     return enc_out, h
 
 
@@ -303,8 +399,10 @@ def _hidden(params, cfg: ModelConfig, tokens, frontend, frames,
     return _norm(h, params["final_norm"], cfg)
 
 
-def _head(params, cfg: ModelConfig):
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def _head(params, cfg: ModelConfig, shards: Shards | None = None):
+    if cfg.tie_embeddings:
+        return _w(shards, params["embed"]).T
+    return _w(shards, params["lm_head"])
 
 
 @torch.no_grad()
@@ -355,11 +453,48 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: str = "dots",
     return loss, {"loss": loss, "tokens": cnt}
 
 
+def cache_logical_axes(cfg: ModelConfig) -> dict:
+    """Logical axes mirroring ``init_cache``'s structure."""
+    table = {
+        "k": ("layers", "act_batch", "cache_seq", "act_kv_heads", "act_hd"),
+        "v": ("layers", "act_batch", "cache_seq", "act_kv_heads", "act_hd"),
+        "slot_pos": ("layers", None),
+        "conv": ("layers", "act_batch", None, "act_dinner"),
+        "h": ("layers", "act_batch", "act_dinner", None),
+        "xa": ("layers", "act_batch", None),
+        "S": ("layers", "act_batch", None, None, None),
+        "xc": ("layers", "act_batch", None),
+        "xk": ("layers", "act_batch", None, "act_heads", None),
+        "xv": ("layers", "act_batch", None, "act_heads", None),
+    }
+    out = {}
+    for kind in cfg.kinds:
+        mixer, ffn = kind.split("+")
+        names = []
+        if mixer in ("attn", "swa"):
+            names += ["k", "v", "slot_pos"]
+        elif mixer == "mamba":
+            names += ["conv", "h"]
+        elif mixer == "rwkv":
+            names += ["xa", "S", "xc"]
+        if ffn == "cmix" and "xc" not in names:
+            names.append("xc")
+        if cfg.is_encdec:
+            names += ["xk", "xv"]
+        out[kind] = {n: table[n] for n in names}
+    return out
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                dtype: torch.dtype = COMPUTE_DTYPE,
-               device: DeviceLike = None) -> dict:
-    """Stacked per-kind decode caches on ``device`` (default: the card)."""
+               device: DeviceLike = None, rules=None) -> dict:
+    """Stacked per-kind decode caches on ``device`` (default: the card).
+    With ``rules`` over a ``DeviceMesh``, each leaf is a ``DTensor`` laid
+    out by its spec (``cache_logical_axes``) and this rank allocates only
+    its shard."""
     dev = resolve_device(device)
+    if rules is not None:
+        return _sharded_cache(cfg, batch, max_seq, dtype, dev, rules)
     caches = {}
     nh, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -397,32 +532,71 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     return caches
 
 
+def _sharded_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                   dev: torch.device, rules) -> dict:
+    """``init_cache``'s leaves as ``DTensor``s, each rank holding only its
+    shard: every leaf starts at zero but ``slot_pos`` (-1)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..sharding.collectives import as_dtensor
+    with FakeTensorMode():       # the whole leaves' shapes, nothing allocated
+        whole = init_cache(cfg, batch, max_seq, dtype=dtype, device="cpu")
+    axes = cache_logical_axes(cfg)
+    out = {}
+    for kind, leaves in whole.items():
+        out[kind] = {}
+        for name, t in leaves.items():
+            ax = axes[kind][name]
+            shape = rules.local_shape(t.shape, rules.spec(ax, t.shape))
+            local = torch.full(shape, -1 if name == "slot_pos" else 0,
+                               dtype=t.dtype, device=dev)
+            out[kind][name] = as_dtensor(local, rules, ax, tuple(t.shape))
+    return out
+
+
+def _local_caches(caches, shards: Shards | None):
+    """Sharded, the caches' local shards (written in place)."""
+    if shards is None:
+        return caches
+    return {kind: {name: t.to_local() for name, t in leaves.items()}
+            for kind, leaves in caches.items()}
+
+
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens, caches, *, frontend=None,
-            frames=None):
+            frames=None, shards: Shards | None = None):
     """Full-sequence forward that fills the caches (in place); returns
-    (last-token logits (B, 1, V), caches)."""
-    enc_out, h = _start(params, cfg, tokens, frontend, frames)
+    (last-token logits (B, 1, V), caches).  With ``shards``, one rank's
+    part of a sharded prefill: ``tokens`` (and ``frontend``/``frames``)
+    are this rank's rows, ``params`` and ``caches`` its ``DTensor`` shards,
+    and the logits the ``DTensor`` of the global ones."""
+    enc_out, h = _start(params, cfg, tokens, frontend, frames,
+                        shards=shards)
     s = h.shape[1]
     sin, cos = _rope_tables(cfg, torch.arange(s, device=h.device))
     ctx = Ctx(mode="prefill", sin=sin, cos=cos,
-              prefix_len=cfg.frontend_tokens, enc_out=enc_out)
-    h = _run_blocks(cfg, params["blocks"], caches, h, ctx)
-    h = _norm(h, params["final_norm"], cfg)
-    return _logits(params, cfg, h[:, -1:]), caches
+              prefix_len=cfg.frontend_tokens, enc_out=enc_out, shards=shards)
+    h = _run_blocks(cfg, params["blocks"], _local_caches(caches, shards), h,
+                    ctx)
+    h = _norm(h, _w(shards, params["final_norm"]), cfg)
+    return _logits(params, cfg, h[:, -1:], shards), caches
 
 
 @torch.no_grad()
-def decode_step(params, cfg: ModelConfig, token, caches, pos: int):
+def decode_step(params, cfg: ModelConfig, token, caches, pos: int, *,
+                shards: Shards | None = None):
     """One decode step: token (B, 1) int, ``pos`` the new token's position
-    -> (logits (B, 1, V), caches updated in place)."""
+    -> (logits (B, 1, V), caches updated in place).  With ``shards``, as
+    ``prefill``'s: ``token`` is this rank's rows."""
     pos = int(pos)
-    h = _embed(params, cfg, token)
+    h = _embed(params, cfg, token, shards=shards)
     if cfg.is_encdec:
-        h = h + params["dec_pos_emb"][None, pos:pos + 1].to(h.dtype)
+        h = h + _w(shards, params["dec_pos_emb"])[None, pos:pos + 1].to(
+            h.dtype)
     # arange, not a tensor from a list: no host-to-device copy in the step
     sin, cos = _rope_tables(cfg, torch.arange(pos, pos + 1, device=h.device))
-    ctx = Ctx(mode="decode", sin=sin, cos=cos, pos=pos)
-    h = _run_blocks(cfg, params["blocks"], caches, h, ctx)
-    h = _norm(h, params["final_norm"], cfg)
-    return _logits(params, cfg, h), caches
+    ctx = Ctx(mode="decode", sin=sin, cos=cos, pos=pos, shards=shards)
+    h = _run_blocks(cfg, params["blocks"], _local_caches(caches, shards), h,
+                    ctx)
+    h = _norm(h, _w(shards, params["final_norm"]), cfg)
+    return _logits(params, cfg, h, shards), caches

@@ -57,10 +57,12 @@ def _positions_in_expert(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
 
 
 def route(xt: torch.Tensor, p: dict, cfg: ModelConfig,
-          router_bits: dict | None = None
+          router_bits: dict | None = None, *, shards=None
           ) -> tuple[torch.Tensor, torch.Tensor]:
     """(T, D) tokens -> (top_w (T, k) f32, top_i (T, k) int64) expert
-    choices; k is 1 for the TCAM router."""
+    choices; k is 1 for the TCAM router.  With ``shards`` and the router's
+    expert columns split over "model", the logits of this rank's columns
+    are all-gathered before the softmax."""
     if cfg.router == "tcam_dt":
         from .tcam_router import route_tcam
         assert router_bits is not None, "tcam_dt router needs compiled bits"
@@ -68,6 +70,8 @@ def route(xt: torch.Tensor, p: dict, cfg: ModelConfig,
         return torch.ones(top_i.shape, dtype=torch.float32,
                           device=xt.device), top_i
     logits = xt.float() @ p["w_router"].float()
+    if logits.shape[1] < cfg.n_experts:
+        logits = shards.gather(logits, "model", 1)
     gates = torch.softmax(logits, dim=-1)
     # Sorted descending, as jax.lax.top_k.  On equal gates lax.top_k takes
     # the lower index first; torch.topk does not promise an order among
@@ -77,16 +81,35 @@ def route(xt: torch.Tensor, p: dict, cfg: ModelConfig,
     return top_w, top_i
 
 
+def _route(xt, p, cfg, router_bits, shards):
+    # unsharded, ``route`` is called as it always was (tools patch it)
+    if shards is None:
+        return route(xt, p, cfg, router_bits)
+    return route(xt, p, cfg, router_bits, shards=shards)
+
+
 def moe_ffn(
     x: torch.Tensor,              # (B, S, D)
     p: dict,                      # w_router (D,E), w_gate/w_up (E,D,F), w_down (E,F,D)
     cfg: ModelConfig,
     *,
     router_bits: dict | None = None,   # tcam_dt router tensors (see tcam_router)
+    shards=None,                  # sharded serving: this rank's part
 ) -> torch.Tensor:
+    """The MoE layer.  With ``shards`` (``sharding.collectives.Shards``),
+    ``x`` is this rank's rows of the batch and ``p`` its shards: the token
+    groups and their capacity are the global batch's, as the reference's
+    (GSPMD keeps global semantics).  Where the groups split evenly over the
+    batch's "data" ranks a rank runs its own groups; otherwise its tokens
+    share groups with other ranks, and the expert choices of every token
+    are gathered over "data" so that each dispatch is ranked in the global
+    order.  Experts split over "model" run only this rank's experts; the
+    combined outputs are then partial sums, added over "model"."""
     b, s, d = x.shape
     t = b * s
-    g = cfg.moe_groups if (b * s) % cfg.moe_groups == 0 else 1  # decode: t=B
+    n_shards = 1 if shards is None else shards.batch_shards
+    tg = t * n_shards                                       # global tokens
+    g = cfg.moe_groups if tg % cfg.moe_groups == 0 else 1  # decode: t=B
     dt = x.dtype
     # Serving casts the expert weights once per layer call, shared by every
     # group.  With a gradient each group casts its own (inside its
@@ -94,13 +117,26 @@ def moe_ffn(
     # as the reference's per-group cast does.
     w = (None if torch.is_grad_enabled() else
          {n: p[n].to(dt) for n in _EXPERT_WEIGHTS})
-    xg = x.reshape(g, t // g, d)
-    # with groups, each is recomputed in the backward (the reference's
-    # checkpointed scan over groups)
-    remat = "full" if g > 1 else "none"
-    y = torch.stack([checkpointed(_moe_group, xg[i], p, cfg, router_bits, w,
-                                  remat=remat) for i in range(g)])
+    if g % n_shards:
+        y = _moe_spanning(x.reshape(t, d), p, cfg, router_bits, w, shards, g)
+    else:
+        g //= n_shards                                      # this rank's
+        xg = x.reshape(g, t // g, d)
+        # with groups, each is recomputed in the backward (the reference's
+        # checkpointed scan over groups)
+        remat = "full" if g > 1 else "none"
+        y = torch.stack([checkpointed(_moe_group, xg[i], p, cfg, router_bits,
+                                      w, shards, remat=remat)
+                         for i in range(g)])
+    if p["w_gate"].shape[0] < cfg.n_experts:     # this rank's experts only
+        y = shards.sum(y, "model")
     return y.reshape(b, s, d)
+
+
+def _local_experts(p: dict, cfg: ModelConfig, shards) -> tuple[int, int]:
+    """(first, count) of the experts whose weights ``p`` holds."""
+    n = p["w_gate"].shape[0]
+    return (0, n) if n == cfg.n_experts else (shards.rank("model") * n, n)
 
 
 def _moe_group(
@@ -109,36 +145,79 @@ def _moe_group(
     cfg: ModelConfig,
     router_bits: dict | None,
     w: dict | None,               # expert weights in x's dtype, or None
+    shards=None,
 ) -> torch.Tensor:
     t, d = xt.shape
     e = cfg.n_experts
-    dt = xt.dtype
     if w is None:
-        w = {n: p[n].to(dt) for n in _EXPERT_WEIGHTS}
-    top_w, top_i = route(xt, p, cfg, router_bits)
-    k = top_i.shape[1]
-
+        w = {n: p[n].to(xt.dtype) for n in _EXPERT_WEIGHTS}
+    top_w, top_i = _route(xt, p, cfg, router_bits, shards)
     c = capacity(cfg, t)
     flat_e = top_i.reshape(-1)                              # (T*k,)
     pos = _positions_in_expert(flat_e, e)
+    e0, ne = _local_experts(p, cfg, shards)
+    return _experts(xt, top_w, flat_e, pos, c, 1, e0, ne, w, cfg)
+
+
+def _moe_spanning(xt, p, cfg, router_bits, w, shards, g) -> torch.Tensor:
+    """This rank's tokens (T, D) of a batch whose ``g`` token groups do not
+    split evenly over its "data" ranks: the expert choices of every token
+    are gathered over "data" (in the global token order) and each dispatch
+    is ranked within its group and expert there; this rank runs its own
+    dispatches, its groups side by side on each expert's capacity axis."""
+    t, d = xt.shape
+    e = cfg.n_experts
+    if w is None:
+        w = {n: p[n].to(xt.dtype) for n in _EXPERT_WEIGHTS}
+    top_w, top_i = _route(xt, p, cfg, router_bits, shards)
+    k = top_i.shape[1]
+    every = shards.gather(top_i, "data", 0)                 # (T_global, k)
+    tg = every.shape[0]
+    per = tg // g                                           # group size
+    group = torch.arange(tg, device=xt.device) // per
+    pos = _positions_in_expert(
+        (group[:, None] * e + every).reshape(-1), g * e)    # per group
+    first = shards.batch_index * t
+    g0, g1 = first // per, (first + t - 1) // per           # this rank's
+    pos = pos[first * k:(first + t) * k]
+    local_group = (group[first:first + t] - g0).repeat_interleave(k)
+    e0, ne = _local_experts(p, cfg, shards)
+    return _experts(xt, top_w, top_i.reshape(-1), pos, capacity(cfg, per),
+                    g1 - g0 + 1, e0, ne, w, cfg, local_group)
+
+
+def _experts(xt, top_w, flat_e, pos, c: int, groups: int, e0: int, ne: int,
+             w: dict, cfg: ModelConfig, group=None) -> torch.Tensor:
+    """Dispatch, expert FFNs and combine of tokens ``xt`` (T, D) with
+    choices ``flat_e`` (T*k,), ranked ``pos`` within their expert (and
+    ``group``, of ``groups`` side by side), capacity ``c``: experts
+    [e0, e0 + ne) only (the others' dispatches are left out)."""
+    t, d = xt.shape
+    k = flat_e.shape[0] // t
+    dt = xt.dtype
     keep = pos < c
-    slot = torch.where(keep, flat_e * c + pos, e * c)       # overflow -> slot E*C
+    if ne < cfg.n_experts:
+        keep &= (flat_e >= e0) & (flat_e < e0 + ne)
+        flat_e = flat_e - e0
+    rows = groups * c                                       # per expert
+    at = pos if group is None else group * c + pos
+    slot = torch.where(keep, flat_e * rows + at, ne * rows)  # overflow -> last
 
     x_rep = torch.repeat_interleave(xt, k, dim=0)           # (T*k, D)
     src = torch.where(keep[:, None], x_rep, 0)
     # every dropped dispatch writes zeros to the one overflow row, so the
     # order of those duplicate writes does not matter
-    buf = torch.zeros((e * c + 1, d), dtype=dt, device=xt.device)
+    buf = torch.zeros((ne * rows + 1, d), dtype=dt, device=xt.device)
     buf[slot] = src
-    h = buf[: e * c].reshape(e, c, d)
+    h = buf[: ne * rows].reshape(ne, rows, d)
 
     gg = torch.bmm(h, w["w_gate"])
     u = torch.bmm(h, w["w_up"])
     out = torch.bmm(act_fn(gg, cfg.mlp_act) * u, w["w_down"])
 
     out_flat = torch.cat(
-        [out.reshape(e * c, d), torch.zeros((1, d), dtype=dt,
-                                            device=xt.device)], dim=0)
+        [out.reshape(ne * rows, d), torch.zeros((1, d), dtype=dt,
+                                                device=xt.device)], dim=0)
     y_disp = out_flat[slot] * keep[:, None].to(dt)          # (T*k, D)
     return (y_disp.reshape(t, k, d)
             * top_w.reshape(t, k, 1).to(dt)).sum(dim=1)

@@ -23,7 +23,7 @@ from .config import ModelConfig
 from .layers import dense_init
 
 __all__ = ["init_params", "param_logical_axes", "param_count", "kind_specs",
-           "param_shapes"]
+           "param_shapes", "param_placements", "shard_params"]
 
 Init = Union[str, Callable]
 
@@ -250,6 +250,43 @@ def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter pytree as f32 tensors on the meta device: shapes and
     dtypes, no memory (the reference's ``jax.eval_shape(init_params)``)."""
     return _build(cfg, None, axes_only=False)
+
+
+def _map_axes(fn, axes, tree):
+    """``fn(logical_axes, leaf)`` over a dict tree whose axes tree holds a
+    tuple of logical names in each leaf's place."""
+    if isinstance(axes, dict):
+        return {k: _map_axes(fn, axes[k], tree[k]) for k in tree}
+    return fn(axes, tree)
+
+
+def param_placements(cfg: ModelConfig, rules, params) -> dict:
+    """Each leaf's ``DTensor`` placements under ``rules``."""
+    return _map_axes(lambda ax, p: rules.placements(ax, p.shape),
+                     param_logical_axes(cfg), params)
+
+
+def shard_params(params, cfg: ModelConfig, rules) -> dict:
+    """A whole param tree (every rank holds it) as ``DTensor``s laid out by
+    the rules (``rules.mesh`` a ``DeviceMesh``): each rank keeps its shard
+    of each leaf, a copy where the shard is smaller than the leaf and the
+    leaf itself where it is the whole (a mesh of one copies nothing)."""
+    from ..sharding.collectives import as_dtensor
+
+    def put(ax, t):
+        spec = rules.spec(ax, t.shape)
+        local = t
+        for i, axis in enumerate(spec):
+            for a in (axis if isinstance(axis, tuple) else (axis,)):
+                if a is None or rules.sizes[a] == 1:
+                    continue
+                n = local.shape[i] // rules.sizes[a]
+                local = local.narrow(i, rules.mesh.get_local_rank(a) * n, n)
+        if local.shape != t.shape:
+            local = local.clone(memory_format=torch.contiguous_format)
+        return as_dtensor(local, rules, ax, tuple(t.shape))
+
+    return _map_axes(put, param_logical_axes(cfg), params)
 
 
 def param_count(params) -> int:

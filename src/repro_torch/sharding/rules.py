@@ -29,7 +29,9 @@ tensor comes back unchanged (eager PyTorch has no compiler to take a layout
 constraint, and a constraint changes layout, not values) and a ``DTensor``
 is redistributed to the spec's placements.  The model code calls no
 ``shard``: the data-parallel train step (``train.build_train_step(...,
-rules=)``) makes its collectives explicit.
+rules=)``) and sharded serving (``train.build_prefill_step(..., rules=)``,
+over ``collectives.Shards``) make their collectives explicit, on the local
+shards whose shapes ``Rules.local_shape`` gives.
 """
 from __future__ import annotations
 
@@ -92,6 +94,17 @@ class Rules:
         while out and out[-1] is None:
             out.pop()
         return tuple(out)
+
+    def local_shape(self, shape: Sequence[int], spec: tuple) -> tuple:
+        """The shape of one rank's shard of a ``shape``-shaped tensor laid
+        out by ``spec`` (every split of a spec divides its dim)."""
+        spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+        return tuple(n // self.axis_size(a) for n, a in zip(shape, spec))
+
+    def group(self, axis: str):
+        """The process group of this rank's ranks along mesh axis ``axis``
+        (a ``DeviceMesh`` only)."""
+        return self.mesh.get_group(axis)
 
     def placements(self, logical: Sequence[Optional[str]],
                    shape: Optional[Sequence[int]] = None) -> tuple:

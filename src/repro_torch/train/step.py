@@ -17,11 +17,15 @@ the state rests as ``DTensor`` shards (``shard_state``), each rank takes its
 rows of the global batch, gathers the whole param tree once, runs
 ``accumulate_grads`` on its rows, reduce-scatters the gradients to the
 params' placements and updates its shard, with the gradient norm and the
-int8 scales reduced over every rank.
+int8 scales reduced over every rank.  ``build_prefill_step`` and
+``build_decode_step`` with ``rules`` over a ("data", "model")
+``DeviceMesh`` serve sharded: each rank runs its rows of the global batch
+on its param and cache shards, the tensor- and expert-parallel
+collectives explicit in ``models.lm``.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -29,7 +33,8 @@ from ..device import DeviceLike
 from ..models import (ModelConfig, decode_step, init_cache, init_params,
                       loss_fn, param_logical_axes, prefill)
 from ..models.layers import COMPUTE_DTYPE
-from ..models.params import param_shapes
+from ..models.lm import cache_logical_axes
+from ..models.params import param_placements, param_shapes
 from ..optim import AdamWConfig, OptState, adamw_init, adamw_update
 from ..optim.compress import ef_compress, ef_init
 from ..pytree import tree_leaves, tree_map, tree_unflatten
@@ -100,38 +105,6 @@ def state_shardings(cfg: ModelConfig, rules: Rules, *,
                    step=_struct((), torch.int32, ()))
     return TrainState(params=params, opt=opt,
                       ef=cast(params, torch.float32) if compress else None)
-
-
-def cache_logical_axes(cfg: ModelConfig) -> dict:
-    """Logical axes mirroring ``init_cache``'s structure."""
-    table = {
-        "k": ("layers", "act_batch", "cache_seq", "act_kv_heads", "act_hd"),
-        "v": ("layers", "act_batch", "cache_seq", "act_kv_heads", "act_hd"),
-        "slot_pos": ("layers", None),
-        "conv": ("layers", "act_batch", None, "act_dinner"),
-        "h": ("layers", "act_batch", "act_dinner", None),
-        "xa": ("layers", "act_batch", None),
-        "S": ("layers", "act_batch", None, None, None),
-        "xc": ("layers", "act_batch", None),
-        "xk": ("layers", "act_batch", None, "act_heads", None),
-        "xv": ("layers", "act_batch", None, "act_heads", None),
-    }
-    out = {}
-    for kind in cfg.kinds:
-        mixer, ffn = kind.split("+")
-        names = []
-        if mixer in ("attn", "swa"):
-            names += ["k", "v", "slot_pos"]
-        elif mixer == "mamba":
-            names += ["conv", "h"]
-        elif mixer == "rwkv":
-            names += ["xa", "S", "xc"]
-        if ffn == "cmix" and "xc" not in names:
-            names.append("xc")
-        if cfg.is_encdec:
-            names += ["xk", "xv"]
-        out[kind] = {n: table[n] for n in names}
-    return out
 
 
 def _batch_struct(cfg: ModelConfig, seq: int, batch: int, rules: Rules,
@@ -215,11 +188,6 @@ def _device_mesh(rules: Rules):
     return mesh
 
 
-def _param_placements(cfg: ModelConfig, rules: Rules, params) -> Any:
-    return _map_axes(lambda ax, p: rules.placements(ax, p.shape),
-                     param_logical_axes(cfg), params)
-
-
 def shard_state(state: TrainState, cfg: ModelConfig,
                 rules: Rules) -> TrainState:
     """Each rank's shards of a state that every rank holds whole: params,
@@ -227,7 +195,7 @@ def shard_state(state: TrainState, cfg: ModelConfig,
     params' specs (no communication); the step count stays a plain tensor."""
     from torch.distributed.tensor import distribute_tensor
     mesh = _device_mesh(rules)
-    places = _param_placements(cfg, rules, state.params)
+    places = param_placements(cfg, rules, state.params)
 
     def put(tree):
         return _map_axes(lambda pl, t: distribute_tensor(
@@ -398,17 +366,101 @@ def build_train_step(
     return sharded_step
 
 
+# ---------------------------------------------------------------------------
+# serving steps, unsharded or over a (data, model) DeviceMesh
+# ---------------------------------------------------------------------------
+_NEXT_SLICE = ("tensor-parallel serving of the recurrent and "
+               "encoder-decoder families (act_dinner, rwkv heads, "
+               "cross-attention) is the next slice of the port")
+
+
+def _serving_mesh(cfg: ModelConfig, rules: Rules):
+    """``rules.mesh`` as a ``DeviceMesh`` the serving steps run on; raises
+    where the configuration needs what they cannot do."""
+    mesh = rules.mesh
+    if not hasattr(mesh, "get_local_rank"):
+        raise TypeError("sharded serving runs over a DeviceMesh "
+                        "(launch.mesh_for_devices), not a mesh shape")
+    mixers = {kind.split("+")[0] for kind in cfg.pattern}
+    if rules.sizes.get("model", 1) > 1 and (
+            mixers - {"attn", "swa"} or cfg.is_encdec):
+        raise ValueError(f"{cfg.name} on mesh {rules.sizes}: a 'model' axis "
+                         f"larger than 1 needs {_NEXT_SLICE}")
+    return mesh
+
+
+def _check_shards(tree, axes, rules: Rules, what: str) -> None:
+    """Every leaf of ``tree`` is a ``DTensor`` laid out as the rules give
+    (``input_specs``' spec), with the local shape of that spec."""
+    from torch.distributed.tensor import DTensor
+
+    def one(ax, t):
+        if not isinstance(t, DTensor):
+            raise TypeError(f"{what}: a plain tensor where a DTensor shard "
+                            f"is expected (axes {ax})")
+        spec = rules.spec(ax, t.shape)
+        want = rules.local_shape(t.shape, spec)
+        if (tuple(t.to_local().shape) != want
+                or tuple(t.placements) != rules.placements(ax, t.shape)):
+            raise ValueError(f"{what}: shard {tuple(t.to_local().shape)} "
+                             f"{t.placements} of {tuple(t.shape)}, the "
+                             f"rules give {want} for spec {spec}")
+    _map_axes(one, axes, tree)
+
+
+def _serving_shards(cfg: ModelConfig, rules: Rules, params, caches,
+                    batch: int):
+    from ..sharding.collectives import Shards
+    _check_shards(params, param_logical_axes(cfg), rules, "params")
+    _check_shards(caches, cache_logical_axes(cfg), rules, "caches")
+    return Shards(rules, batch)
+
+
 def build_prefill_step(cfg: ModelConfig, rules: Optional[Rules] = None):
-    def prefill_step(params, batch, caches):
-        with use_rules(rules):
+    """Returns ``prefill_step(params, batch, caches) -> (logits, caches)``.
+
+    With ``rules`` over a ("data", "model") ``DeviceMesh`` the step is
+    sharded: it takes params and caches as ``DTensor`` shards
+    (``models.params.shard_params``, ``init_cache(..., rules=)``) and the
+    global batch, the same on every rank; each rank runs its rows
+    (``act_batch``) on its shards, the collectives explicit
+    (``models.lm``), and the logits come back as the ``DTensor`` of the
+    global ones.  A "model" axis larger than 1 takes the attention
+    families only."""
+    if rules is None:
+        def prefill_step(params, batch, caches):
             return prefill(params, cfg, batch["tokens"], caches,
                            frontend=batch.get("patches"),
                            frames=batch.get("frames"))
-    return prefill_step
+        return prefill_step
+    _serving_mesh(cfg, rules)
+
+    def sharded_prefill(params, batch, caches):
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        shards = _serving_shards(cfg, rules, params, caches,
+                                 batch["tokens"].shape[0])
+        lo, hi = shards.rows
+        rows = {k: v[lo:hi] for k, v in batch.items()}
+        return prefill(params, cfg, rows["tokens"], caches,
+                       frontend=rows.get("patches"), frames=rows.get("frames"),
+                       shards=shards)
+    return sharded_prefill
 
 
 def build_decode_step(cfg: ModelConfig, rules: Optional[Rules] = None):
-    def serve_step(params, token, caches, pos):
-        with use_rules(rules):
+    """Returns ``serve_step(params, token, caches, pos) -> (logits,
+    caches)``; with ``rules`` over a ``DeviceMesh``, sharded as
+    ``build_prefill_step``'s step: ``token`` (B, 1) is the global batch's."""
+    if rules is None:
+        def serve_step(params, token, caches, pos):
             return decode_step(params, cfg, token, caches, pos)
-    return serve_step
+        return serve_step
+    _serving_mesh(cfg, rules)
+
+    def sharded_decode(params, token, caches, pos):
+        token = torch.as_tensor(token)
+        shards = _serving_shards(cfg, rules, params, caches, token.shape[0])
+        lo, hi = shards.rows
+        return decode_step(params, cfg, token[lo:hi], caches, pos,
+                           shards=shards)
+    return sharded_decode

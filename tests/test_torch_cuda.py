@@ -1189,3 +1189,57 @@ def test_mesh_of_one_on_card_equals_unsharded_step(cuda, tmp_path):
     finally:
         torch.use_deterministic_algorithms(False)
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_sharded_serving_on_a_mesh_of_one_equals_unsharded(cuda, tmp_path):
+    """Reduced qwen3-moe served through ``build_prefill_step``/
+    ``build_decode_step`` under the serving rules on a mesh of one card
+    (an NCCL process group of one): a prefill of 4 x 32 tokens and 4
+    greedy decode steps give the unsharded path's logits and caches bit
+    for bit, in bf16; the param shards are the unsharded tensors."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import make_batch
+    from repro_torch.launch import mesh_for_devices
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.params import shard_params
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.sharding import make_rules
+    from repro_torch.train import build_decode_step, build_prefill_step
+    cfg = get_reduced("qwen3_moe_235b_a22b")
+    toks = torch.from_numpy(make_batch(cfg, 4, 32, seed=0)["tokens"])
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    try:
+        rules = make_rules(mesh_for_devices(1))
+        params = init_params(cfg, 0, device=cuda)
+        sharded = shard_params(params, cfg, rules)
+        assert all(isinstance(b, DTensor) and a.data_ptr()
+                   == b.to_local().data_ptr() for a, b in zip(
+                       tree_leaves(params), tree_leaves(sharded)))
+        out = []
+        for p, r in ((params, None), (sharded, rules)):
+            caches = init_cache(cfg, 4, 40, device=cuda, rules=r)
+            logits, caches = build_prefill_step(cfg, r)(
+                p, {"tokens": toks}, caches)
+            seen = []
+            decode = build_decode_step(cfg, r)
+            for i in range(4):
+                whole = (logits.full_tensor() if r else logits).clone()
+                seen.append(whole)
+                logits, caches = decode(p, whole[:, -1:].argmax(-1), caches,
+                                        32 + i)
+            seen.append((logits.full_tensor() if r else logits).clone())
+            out.append((seen, [t.full_tensor() if r else t
+                               for t in tree_leaves(caches)]))
+        (want, wc), (got, gc) = out
+        assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(got, want))
+        assert len(gc) == len(wc) and all(torch.equal(a, b)
+                                          for a, b in zip(gc, wc))
+    finally:
+        dist.destroy_process_group()
