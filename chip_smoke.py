@@ -4,7 +4,8 @@ drive the single-tree and forest paths at Give Me Some Credit scale, hold
 each kernel against its plain PyTorch version, serve requests, run the LM
 serving path at qwen3-moe-235b-a22b's width and at the widths of rwkv6,
 whisper and jamba, train olmo-1b at its full width and depth, unsharded and
-data-parallel on a mesh of one card, and print what was measured.
+data-parallel on a mesh of one card, serve every family sharded on that
+mesh (the batch-1 long-context layout too), and print what was measured.
 
     python3 chip_smoke.py
 
@@ -140,10 +141,10 @@ Phases (any failed check raises, so the script exits non-zero):
    (8 x 448 after 8 x 1500 frames), whole;
 12. sharding (``sharding_phase``), with the kernels' counters zeroed
    before and read after (none launched), on an NCCL process group of one
-   (a ``FileStore`` in a temporary directory) that phase 13 reuses: the
-   per-device train state of
-   the ``train_4k`` cell of ``olmo_1b`` and ``qwen3_moe_235b_a22b`` on the
-   (16, 16) and (2, 16, 16) production meshes, from ``input_specs``;
+   (a ``FileStore`` in a temporary directory) that phases 13 and 14
+   reuse: the per-device train state of the ``train_4k`` cell of
+   ``olmo_1b`` and ``qwen3_moe_235b_a22b`` on the (16, 16) and
+   (2, 16, 16) production meshes, from ``input_specs``;
    ``mesh_for_devices(1)`` and ``make_rules(mesh, dp_only=True)``; olmo-1b
    whole at phase 11's 8 x 2048, remat and AdamW config: 2 unsharded steps
    and 2 sharded steps from the same seed, every param, ``mu`` and ``nu``
@@ -169,7 +170,23 @@ Phases (any failed check raises, so the script exits non-zero):
    every cache leaf equal bit for bit; both bf16 runs timed with CUDA
    events (prefill, decode ms a step, peak memory) beside phase 9's
    figures and ``lm_work``'s bounds;
-14. the kernels line, the card's name and power limit, and the last line:
+14. sharded serving of every family (``families_serving_phase``) on the
+   same mesh of one card, with the kernels' counters zeroed before and
+   read after (none launched): the per-device param and cache bytes of
+   ``prefill_32k``/``decode_32k`` for rwkv6, whisper and jamba and of
+   ``long_500k`` for jamba, rwkv6 and danube on (16, 16), from
+   ``input_specs``, with the k cache's spec; phase 10's three cells
+   (rwkv6 and whisper whole, jamba's 8 layers) under the serving rules
+   against the unsharded builders on the same tensors, f32 compute at
+   2 x 256 and bf16 at phase 10's timed sizes, 32 greedy steps each,
+   logits of every stage and every cache leaf bit for bit, timed beside
+   phase 10's figures and bounds; then jamba (8 layers) and
+   h2o-danube-1.8b whole at batch 1 under the long-context rules
+   (``make_rules(mesh, batch_divisible=False, seq_sharded_decode=True)``),
+   caches allocated at 524,288 slots (danube's rings at its 4096-token
+   window), a 2048-token prompt and 32 greedy steps in bf16, bit for bit,
+   decode ms a step beside its byte bound;
+15. the kernels line, the card's name and power limit, and the last line:
    ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.
@@ -276,6 +293,14 @@ SHARD_STATE_ARCHS = ("olmo_1b", "qwen3_moe_235b_a22b")
 # LM_DECODE; the f32 check at LM_CHECK_BATCH x LM_CHECK_SEQ)
 SERVE_BYTES_ARCHS = ("qwen3_moe_235b_a22b", "olmo_1b")
 SERVE_BYTES_SHAPES = ("prefill_32k", "decode_32k")
+# phase 14: sharded serving of phase 10's cells (LM_FAMILIES) under the
+# serving rules, and the batch-1 long-context layout, on a mesh of one card
+LONG_ARCHS = {"jamba_v01_52b": 8,      # layers (None: all): one Jamba block
+              "h2o_danube_1p8b": None}
+LONG_MAX_SEQ = 524288        # the long_500k cell's caches, allocated whole,
+LONG_PROMPT = 2048           # filled by a prompt of 2048 (not 524,288), then
+LONG_BATCH = 1               # LM_DECODE greedy steps
+LONG_BYTES_ARCHS = ("jamba_v01_52b", "rwkv6_1p6b", "h2o_danube_1p8b")
 # Tolerances of phase 11 (fixed before its first run on the card):
 TRAIN_LOSS_RTOL = 1e-5       # loss, card vs CPU (f32 compute)
 TRAIN_GRAD_TOL = 1e-4        # grad leaves, card vs CPU and accum 2 vs 1 (f32),
@@ -1551,7 +1576,8 @@ def lm_work(cfg, weight_bytes: int, batch: int, seq: int,
       batch*S_enc^2 non-causal pairs, f32 (reference) or bf16 (function);
     - the head 2*batch*d*V in bf16.
 
-    No configuration here runs a sliding window."""
+    A sliding-window decode passes its ring's slots as ``cache_len`` (the
+    window is longer than every prompt here)."""
     from repro_torch.models.attention import _fit
     from repro_torch.models.moe import capacity
     d, v = cfg.d_model, cfg.vocab_size
@@ -2026,7 +2052,6 @@ def lm_family(dev, name: str, bw: float, arch: str, layers, prompt: int,
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.data import make_batch
     from repro_torch.models import (decode_step, encode_audio, init_cache,
                                     init_params, moe, param_count, prefill)
 
@@ -2051,10 +2076,7 @@ def lm_family(dev, name: str, bw: float, arch: str, layers, prompt: int,
     log(json.dumps({"lm_family_init": {"arch": arch, **init}}))
 
     def inputs(batch, seq, step):
-        b = make_batch(cfg, batch, seq, step=step, seed=LM_SEED)
-        kw = ({"frames": torch.from_numpy(b["frames"]).to(dev)}
-              if cfg.is_encdec else {})
-        return torch.from_numpy(b["tokens"]).to(dev), kw
+        return family_inputs(cfg, batch, seq, step, dev)
 
     # -- prefill -> decode against forward, f32 and bf16 -------------------
     ccfg = (dataclasses.replace(cfg, capacity_factor=LM_CHECK_CF)
@@ -2772,11 +2794,13 @@ def sharded_runs(dev, cfg, opt, pipe, rules, bw: float, peaks: tuple,
 
 
 def served(prefill_step, decode_step, params, cfg, toks, steps: int,
-           dtype, rules=None) -> dict:
-    """``prefill_step`` of ``toks`` on fresh caches (after one warm-up
-    prefill on them) and ``steps`` greedy decode steps, each timed with
-    CUDA events: every stage's whole logits, the whole caches at the end,
-    the times and the peak memory over the timed calls."""
+           dtype, rules=None, extra=None, max_seq=None) -> dict:
+    """``prefill_step`` of ``toks`` (and ``extra``: an encoder-decoder's
+    ``frames``) on fresh caches of ``max_seq`` slots (default: the prompt
+    and ``steps``), after one warm-up prefill on other fresh ones, and
+    ``steps`` greedy decode steps, each timed with CUDA events: every
+    stage's whole logits, the whole caches at the end, the times and the
+    peak memory over the timed calls."""
     import torch
     from torch.distributed.tensor import DTensor
 
@@ -2787,13 +2811,19 @@ def served(prefill_step, decode_step, params, cfg, toks, steps: int,
         return t.full_tensor() if isinstance(t, DTensor) else t
 
     b, s = toks.shape
-    caches = init_cache(cfg, b, s + steps, dtype=dtype, device=toks.device,
-                        rules=rules)
-    prefill_step(params, {"tokens": toks}, caches)     # warm-up, same shapes
+    batch = {"tokens": toks, **(extra or {})}
+
+    def fresh():
+        return init_cache(cfg, b, max_seq or s + steps, dtype=dtype,
+                          device=toks.device, rules=rules)
+
+    prefill_step(params, batch, fresh())               # warm-up, same shapes
+    # fresh leaves: a prefill continues from the recurrent state it finds
+    caches = fresh()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     (logits, caches), prefill_ms = event_ms(
-        lambda: prefill_step(params, {"tokens": toks}, caches))
+        lambda: prefill_step(params, batch, caches))
     seen = [whole(logits).clone()]
     step_ms = []
     for i in range(steps):
@@ -2805,6 +2835,33 @@ def served(prefill_step, decode_step, params, cfg, toks, steps: int,
     return {"logits": seen, "caches": [whole(t) for t in tree_leaves(caches)],
             "prefill_ms": prefill_ms, "step_ms": step_ms,
             "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def served_both(steps: dict, held: dict, cfg, toks, n: int, dtype,
+                what: str, **kw) -> dict:
+    """``served`` through the unsharded builders and the sharded ones
+    (``steps`` and ``held`` by None and "mesh": the builders' step pair,
+    and the params and rules each runs on), one after the other; every
+    stage's logits and every cache leaf equal bit for bit, every logit
+    finite.  Returns both runs."""
+    import torch
+    runs = {}
+    for which in (None, "mesh"):
+        p, r = held[which]
+        runs[which] = served(*steps[which], p, cfg, toks, n, dtype, r, **kw)
+        gc.collect()
+    want, got = runs[None], runs["mesh"]
+    check(len(got["caches"]) == len(want["caches"]) and all(
+        torch.equal(a, b) for a, b in zip(got["caches"], want["caches"])),
+          f"{what}: every cache leaf after prefill and {n} decode steps on "
+          "the mesh of one equals the unsharded path's bit for bit")
+    check(all(torch.equal(a, b)
+              for a, b in zip(got["logits"], want["logits"])),
+          f"{what}: prefill's and every decode step's logits equal the "
+          "unsharded path's bit for bit")
+    check(all(bool(torch.isfinite(t).all()) for t in got["logits"]),
+          f"{what}: every logit is finite")
+    return runs
 
 
 def serving_phase(dev, name: str, bw: float, unsharded: dict) -> dict:
@@ -2872,22 +2929,9 @@ def serving_phase(dev, name: str, bw: float, unsharded: dict) -> dict:
         f"{rules.sizes}, init {t_init:.2f} s")
 
     def both(toks, n, dtype):
-        runs = {}
-        for which, p, r in ((None, params, None), ("mesh", sharded, rules)):
-            runs[which] = served(*steps[which], p, cfg, toks, n, dtype, r)
-            gc.collect()
-        want, got = runs[None], runs["mesh"]
-        check(len(got["caches"]) == len(want["caches"]) and all(
-            torch.equal(a, b) for a, b in zip(got["caches"], want["caches"])),
-              f"{dtype}: every cache leaf after prefill and {n} decode steps "
-              "on the mesh of one equals the unsharded path's bit for bit")
-        check(all(torch.equal(a, b)
-                  for a, b in zip(got["logits"], want["logits"])),
-              f"{dtype}: prefill's and every decode step's logits equal the "
-              "unsharded path's bit for bit")
-        check(all(bool(torch.isfinite(t).all()) for t in got["logits"]),
-              f"{dtype}: every logit is finite")
-        return runs
+        return served_both(steps, {None: (params, None),
+                                   "mesh": (sharded, rules)},
+                           cfg, toks, n, dtype, str(dtype))
 
     # -- f32 compute at the check size, then bf16 as served, timed ----------
     ctoks = torch.from_numpy(make_batch(cfg, LM_CHECK_BATCH, LM_CHECK_SEQ,
@@ -2919,16 +2963,8 @@ def serving_phase(dev, name: str, bw: float, unsharded: dict) -> dict:
     bounds = {f"{stage}_{what}": lm_bound_ms(work[what], bw, peaks)
               for stage, work in (("prefill", pre_work), ("decode", dec_work))
               for what in ("reference", "function")}
-    timed = {}
-    for which, label in ((None, "unsharded"), ("mesh", "sharded")):
-        r = runs[which]
-        timed[label] = {
-            "prefill_ms": r["prefill_ms"],
-            "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / r["prefill_ms"]
-            * 1e3,
-            "decode_ms_per_step_median": statistics.median(r["step_ms"]),
-            "decode_ms_per_step_mean": statistics.mean(r["step_ms"]),
-            "max_memory_allocated_GB": r["peak_GB"]}
+    timed = {label: timed_figures(runs[which], LM_BATCH * LM_PROMPT)
+             for which, label in ((None, "unsharded"), ("mesh", "sharded"))}
     out["serve"] = {
         "arch": cfg.name, "layers": cfg.n_layers, "mesh": dict(rules.sizes),
         "batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": LM_DECODE,
@@ -2952,6 +2988,200 @@ def serving_phase(dev, name: str, bw: float, unsharded: dict) -> dict:
           "kernel")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 13: {out['seconds']:.1f} s")
+    return out
+
+
+def family_inputs(cfg, batch: int, seq: int, step: int, dev) -> tuple:
+    """``make_batch`` tokens (on the card) and, for an encoder-decoder, its
+    ``frames`` as the extra batch entry."""
+    import torch
+
+    from repro_torch.data import make_batch
+    b = make_batch(cfg, batch, seq, step=step, seed=LM_SEED)
+    extra = ({"frames": torch.from_numpy(b["frames"]).to(dev)}
+             if cfg.is_encdec else {})
+    return torch.from_numpy(b["tokens"]).to(dev), extra
+
+
+def timed_figures(run: dict, tokens: int) -> dict:
+    return {"prefill_ms": run["prefill_ms"],
+            "prefill_tokens_per_s": tokens / run["prefill_ms"] * 1e3,
+            "decode_ms_per_step_median": statistics.median(run["step_ms"]),
+            "decode_ms_per_step_mean": statistics.mean(run["step_ms"]),
+            "max_memory_allocated_GB": run["peak_GB"]}
+
+
+def pair_steps(cfg, params, rules) -> tuple:
+    """The unsharded and sharded builders' steps and what each runs on:
+    ``params`` and its ``shard_params`` under ``rules`` (on a mesh of one,
+    the same tensors)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.params import shard_params
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train import build_decode_step, build_prefill_step
+    sharded = shard_params(params, cfg, rules)
+    check(all(isinstance(b, DTensor) and a.data_ptr()
+              == b.to_local().data_ptr() for a, b in zip(
+                  tree_leaves(params), tree_leaves(sharded))),
+          f"{cfg.name}: on a mesh of one the param shards are the "
+          "unsharded tensors")
+    steps = {None: (build_prefill_step(cfg), build_decode_step(cfg)),
+             "mesh": (build_prefill_step(cfg, rules),
+                      build_decode_step(cfg, rules))}
+    return steps, {None: (params, None), "mesh": (sharded, rules)}
+
+
+def families_serving_phase(dev, name: str, bw: float,
+                           families: dict) -> dict:
+    """Phase 14: sharded serving of every configuration family on a mesh
+    of one card, over the NCCL process group of one that phases 12-13 ran
+    on.  (a) Phase 10's cells (``LM_FAMILIES``: rwkv6 and whisper whole,
+    jamba's first 8 layers) under the serving rules (``make_rules(mesh)``)
+    against the unsharded builders on the same tensors: f32 compute at
+    ``LM_CHECK_BATCH`` x ``LM_CHECK_SEQ``, then bf16 at phase 10's timed
+    sizes, ``LM_DECODE`` greedy steps each, logits of every stage and every
+    cache leaf bit for bit, timed beside phase 10's figures (``families``,
+    its record) and bounds.  (b) The batch-1 long-context layout
+    (``make_rules(mesh, batch_divisible=False, seq_sharded_decode=True)``)
+    for ``LONG_ARCHS``: caches of ``LONG_MAX_SEQ`` slots, a prompt of
+    ``LONG_PROMPT`` and ``LM_DECODE`` steps in bf16, bit for bit, decode
+    ms a step beside its byte bound (the weights and the whole ring read
+    each step).  (c) The per-device param and cache bytes of the serving
+    cells on the (16, 16) mesh from ``input_specs``.  (d) The match
+    kernels' counters are zeroed before and read after (none launched)."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import make_production_mesh, mesh_for_devices
+    from repro_torch.launch.dryrun import shard_bytes
+    from repro_torch.models import init_params, lm
+    from repro_torch.models.lm import _cache_len
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.sharding import make_rules
+    from repro_torch.train import input_specs
+
+    t_phase = time.perf_counter()
+    zero_counts()
+    out = {}
+    # -- (c) per-device bytes of the serving cells on the production mesh --
+    prod = make_production_mesh()
+    serve_prod = make_rules(prod)
+    long_prod = make_rules(prod, batch_divisible=False,
+                           seq_sharded_decode=True)
+    cells = ([(a, c, serve_prod) for a in LM_FAMILIES
+              for c in SERVE_BYTES_SHAPES]
+             + [(a, "long_500k", long_prod) for a in LONG_BYTES_ARCHS])
+    per = {}
+    for arch, cell, r in cells:
+        specs = input_specs(get_config(arch), SHAPES[cell], r)
+        rec = {what: sum(shard_bytes(t, r.sizes)
+                         for t in tree_leaves(specs[what]))
+               for what in ("params", "caches")}
+        kv = [c["k"] for c in specs["caches"].values() if "k" in c]
+        if kv:
+            rec["k_cache_spec"] = kv[0].spec
+        per[f"{arch}/{cell}"] = rec
+    out["bytes_per_device"] = per
+    log(json.dumps({"families_serving_bytes_per_device": {
+        "mesh": serve_prod.sizes, **per}}))
+
+    mesh = mesh_for_devices(1)
+    serve_rules = make_rules(mesh)
+    long_rules = make_rules(mesh, batch_divisible=False,
+                            seq_sharded_decode=True)
+    peaks = peak_flops(name)
+    layers = {**{a: v[0] for a, v in LM_FAMILIES.items()}, **LONG_ARCHS}
+    for arch, n_layers in layers.items():
+        full = get_config(arch)
+        cfg = (full if n_layers is None
+               else dataclasses.replace(full, n_layers=n_layers))
+        params, t_init = sync_time(lambda: init_params(cfg, LM_SEED,
+                                                       device=dev))
+        rec = {"layers": cfg.n_layers, "init_s": t_init}
+        # -- (a) phase 10's cell under the serving rules ---------------------
+        if arch in LM_FAMILIES:
+            prompt = LM_FAMILIES[arch][1]
+            steps, held = pair_steps(cfg, params, serve_rules)
+            toks, extra = family_inputs(cfg, LM_CHECK_BATCH, LM_CHECK_SEQ,
+                                        0, dev)
+            with mock.patch.object(lm, "COMPUTE_DTYPE", torch.float32):
+                served_both(steps, held, cfg, toks, LM_DECODE,
+                            torch.float32, f"{arch} f32", extra=extra)
+            toks, extra = family_inputs(cfg, LM_BATCH, prompt, 1, dev)
+            runs = served_both(steps, held, cfg, toks, LM_DECODE,
+                               torch.bfloat16, f"{arch} bf16", extra=extra)
+            ten = families[arch]["serve"]
+            rec["serving_rules"] = {
+                "mesh": dict(serve_rules.sizes), "batch": LM_BATCH,
+                "prompt": prompt, "decode_steps": LM_DECODE,
+                "equal": {"float32": [LM_CHECK_BATCH, LM_CHECK_SEQ,
+                                      LM_DECODE],
+                          "bfloat16": [LM_BATCH, prompt, LM_DECODE]},
+                "unsharded": timed_figures(runs[None], LM_BATCH * prompt),
+                "sharded": timed_figures(runs["mesh"], LM_BATCH * prompt),
+                "phase10": {k: ten[k] for k in (
+                    "prefill_ms", "decode_ms_per_step_median",
+                    "max_memory_allocated_GB")},
+                # the same cell, tokens and greedy steps as phase 10's
+                "bound_ms_by": ten["bound_ms_by"]}
+            log(json.dumps({"families_sharded_serve": {
+                "arch": arch, **rec["serving_rules"]}}))
+            del steps, held, runs, toks, extra
+            gc.collect()
+        # -- (b) the batch-1 long-context layout -----------------------------
+        if arch in LONG_ARCHS:
+            steps, held = pair_steps(cfg, params, long_rules)
+            toks, extra = family_inputs(cfg, LONG_BATCH, LONG_PROMPT, 2, dev)
+            runs = served_both(steps, held, cfg, toks, LM_DECODE,
+                               torch.bfloat16, f"{arch} long-context",
+                               extra=extra, max_seq=LONG_MAX_SEQ)
+            mixers = {k.split("+")[0] for k in cfg.pattern} & {"attn", "swa"}
+            ring = max(_cache_len(cfg, m, LONG_MAX_SEQ) for m in mixers)
+            w_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(params))
+            read = w_bytes - (0 if cfg.tie_embeddings
+                              else params["embed"].numel() * 4)
+            # one token picks experts_per_token experts in each MoE layer
+            n_moe = sum(k.endswith("+moe") for k in cfg.pattern) \
+                * cfg.n_repeat
+            dec_work = lm_work(cfg, read, LONG_BATCH, 1, ring,
+                               n_moe * cfg.experts_per_token)
+            pre_work = lm_work(cfg, read, LONG_BATCH, LONG_PROMPT)
+            cache_bytes = sum(t.numel() * t.element_size()
+                              for t in runs[None]["caches"])
+            rec["long_context"] = {
+                "mesh": dict(long_rules.sizes), "batch": LONG_BATCH,
+                "max_seq": LONG_MAX_SEQ, "ring_slots": ring,
+                "prompt": LONG_PROMPT, "decode_steps": LM_DECODE,
+                "equal": "bit for bit", "cache_GB": cache_bytes / 1e9,
+                "unsharded": timed_figures(runs[None],
+                                           LONG_BATCH * LONG_PROMPT),
+                "sharded": timed_figures(runs["mesh"],
+                                         LONG_BATCH * LONG_PROMPT),
+                "prefill_work": pre_work, "decode_work": dec_work,
+                "bound_ms_by": {
+                    f"{stage}_{what}": lm_bound_ms(work[what], bw, peaks)
+                    for stage, work in (("prefill", pre_work),
+                                        ("decode", dec_work))
+                    for what in ("reference", "function")}}
+            log(json.dumps({"families_long_context": {
+                "arch": arch, **{k: v for k, v in rec["long_context"].items()
+                                 if not k.endswith("_work")}}}))
+            del steps, held, runs, toks, extra
+        out[arch] = rec
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    log(f"phase 14 launches: {counts}")
+    check(not any(counts.values()), "sharded serving of the families "
+          "launches no match kernel")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14: {out['seconds']:.1f} s")
     return out
 
 
@@ -3164,7 +3394,7 @@ def main() -> int:
     # -- 10. the recurrent and encoder-decoder families at full width -------
     gc.collect()
     torch.cuda.empty_cache()
-    lm_families_phase(dev, name, bw)
+    families = lm_families_phase(dev, name, bw)
 
     # -- 11. training at olmo-1b's full width and depth -------------------------
     gc.collect()
@@ -3172,7 +3402,8 @@ def main() -> int:
     trained = train_phase(dev, name, bw)
 
     # -- 12. sharding: the data-parallel step on a mesh of one, the dry run;
-    # -- 13. sharded serving on the same NCCL process group of one ----------
+    # -- 13. sharded serving on the same NCCL process group of one;
+    # -- 14. every family sharded there, the long-context layout too -------
     import tempfile
 
     import torch.distributed as dist
@@ -3189,10 +3420,13 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
             serving_phase(dev, name, bw, served_lm["serve"])
+            gc.collect()
+            torch.cuda.empty_cache()
+            families_serving_phase(dev, name, bw, families)
         finally:
             dist.destroy_process_group()
 
-    # -- 14. result --------------------------------------------------------------
+    # -- 15. result --------------------------------------------------------------
     log(smi)
     log(json.dumps({"kernels": [bitplane, packed, banked]}))
     log(json.dumps({"ok": True, "device": {

@@ -98,6 +98,10 @@ def flash_attention(
         for q0 in range(0, sq, q_chunk)], dim=1)
 
 
+def _as_is(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def decode_attention(
     q: torch.Tensor,         # (B, 1, H, hd) — one new token
     cache_k: torch.Tensor,   # (B, S, KV, hd) — RoPE applied at write time
@@ -108,12 +112,22 @@ def decode_attention(
     window: int = 0,
     scale: float | None = None,   # default hd ** -0.5
     scores_sum=None,         # sums partial scores over the ranks sharing hd
+    seq_max=_as_is,          # over the ranks holding the other cache slots:
+    seq_sum=_as_is,          # their max, and their sum in f32
 ) -> torch.Tensor:
     """One query token against the cache.  Sharded over ``head_dim``
     (``q`` and the caches hold this rank's columns of it), the products
     over the local columns are partial scores, which ``scores_sum`` adds
     up over the ranks before the softmax; ``scale`` is then the whole head
-    dim's.  The output holds the same columns."""
+    dim's.  The output holds the same columns.
+
+    Sharded over the sequence (the caches and ``slot_pos`` hold this
+    rank's stretch of the slots), the softmax is still the global one:
+    ``seq_max`` reduces the scores' max, ``seq_sum`` the sum of their
+    exponentials and then the probability-weighted values, so the
+    probabilities are rounded to the cache's dtype after the global
+    normalisation, as unsharded.  Left as they are, the two hooks give
+    the unsharded arithmetic."""
     b, _, h, hd = q.shape
     _, s, kv, _ = cache_k.shape
     g = h // kv
@@ -132,7 +146,10 @@ def decode_attention(
     if window > 0:
         valid &= slot_pos > pos - window
     s_ = torch.where(valid[None, None, None, :], s_, NEG_INF)
-    p = torch.softmax(s_, dim=-1)
-    out = torch.einsum("bkgs,bskh->bkgh", p.to(cache_v.dtype).float(),
-                       cache_v.float())
+    # the reference's softmax, exp(s - max) / sum, with the reductions over
+    # the slots of every rank
+    e = torch.exp(s_ - seq_max(s_.amax(dim=-1, keepdim=True)))
+    p = e / seq_sum(e.sum(dim=-1, keepdim=True))
+    out = seq_sum(torch.einsum("bkgs,bskh->bkgh",
+                               p.to(cache_v.dtype).float(), cache_v.float()))
     return out.reshape(b, 1, h, hd).to(q.dtype)

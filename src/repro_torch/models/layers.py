@@ -101,11 +101,13 @@ def act_fn(g: torch.Tensor, act: str) -> torch.Tensor:
     return F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
 
 
-def mlp(x: torch.Tensor, p: dict, act: str, reduce=None) -> torch.Tensor:
+def mlp(x: torch.Tensor, p: dict, act: str, dot=None) -> torch.Tensor:
     """Gated MLP (SwiGLU / GeGLU): (w_gate, w_up) -> act(g) * u -> w_down.
-    Sharded over its hidden dim, ``reduce`` sums the partial outputs."""
+    Sharded over its hidden dim, ``dot`` (``Shards.dot``) takes the
+    product with ``w_down``'s rows and sums it over the ranks."""
     dt = x.dtype
     g = x @ p["w_gate"].to(dt)
     u = x @ p["w_up"].to(dt)
-    out = (act_fn(g, act) * u) @ p["w_down"].to(dt)
-    return out if reduce is None else reduce(out)
+    hid = act_fn(g, act) * u
+    w = p["w_down"].to(dt)
+    return hid @ w if dot is None else dot(hid, w)

@@ -36,11 +36,14 @@ its cache shards (``init_cache(..., rules=)``), with the collectives
 explicit: each layer's weights gathered over "data" at use, the
 vocab-parallel embedding and head, the query heads (and their kv heads)
 of this rank with the output projection's partial sums all-reduced over
-"model", decode over a cache whose ``head_dim`` is split by all-reducing
-the partial query-key scores, the MLP's ``mlp`` columns and the MoE's
-experts (``moe.moe_ffn``) split over "model".  Without ``shards`` the
-path is the unsharded one, and on a mesh of one the sharded path runs the
-same operations on the same tensors.
+"model" (``Shards.dot``: in f32, rounded once), decode over a cache whose
+``head_dim`` is split by all-reducing the partial query-key scores, or
+over a cache split by ring slots (the batch-1 long-context layout) by
+combining the softmax over the ranks, the MLP's ``mlp`` columns and the
+MoE's experts (``moe.moe_ffn``), mamba's inner dim, rwkv6's heads and
+channel-mix hidden dim and whisper's cross-attention heads split over
+"model".  Without ``shards`` the path is the unsharded one, and on a mesh
+of one the sharded path runs the same operations on the same tensors.
 ``jax.checkpoint`` maps to ``torch.utils.checkpoint`` (``layers.checkpointed``)
 at the same places: a repeat of ``cfg.pattern`` under ``remat``, each loss
 chunk, each attention query chunk, each MoE token group, each mamba and
@@ -77,6 +80,8 @@ class Ctx:
     enc_out: torch.Tensor | None = None   # encdec: encoder activations
     causal: bool = True
     shards: Shards | None = None      # sharded serving: this rank's part
+    ring: dict = dataclasses.field(default_factory=dict)
+    # kind -> its KV cache's slots (the whole ring's, sharded too)
 
 
 def _w(shards: Shards | None, a, idx: int | None = None):
@@ -109,6 +114,19 @@ def _kv_serving(t: torch.Tensor, q0: int, nq: int, k0: int, g: int):
     return t.index_select(2, idx)
 
 
+def _ring_runs(lo: int, hi: int, clen: int, c0: int, n: int) -> list:
+    """The positions of [lo, hi) (``hi - lo <= clen``) whose ring slots
+    ``pos % clen`` lie in [c0, c0 + n), as runs ``(first, stop, slot)``:
+    positions [first, stop) go to slots [slot, slot + stop - first) counted
+    from ``c0``."""
+    out = []
+    for lap in range(lo // clen, (hi - 1) // clen + 1):
+        a, b = max(lo, lap * clen + c0), min(hi, lap * clen + c0 + n)
+        if a < b:
+            out.append((a, b, a - lap * clen - c0))
+    return out
+
+
 def _norm(x, scale, cfg: ModelConfig):
     if cfg.norm_type == "nonparam":
         return nonparam_norm(x, cfg.norm_eps)
@@ -137,7 +155,15 @@ def _attention_mixer(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
     ``head_dim`` columns of every kv head), and its output projection is a
     partial sum over "model".  Decode over a cache whose ``head_dim`` is
     split runs every head on the rank's columns, its query-key scores
-    summed over "model"."""
+    summed over "model".
+
+    A cache split by sequence (``cache_seq``, the batch-1 long-context
+    layout) holds ring slots [c0, c0 + n) of every kv head on the rank:
+    it computes every kv head's k and v and writes those of its slots.
+    Decode runs every head over the rank's slots, the softmax combined over
+    the ranks of ``cache_seq`` (``decode_attention``'s ``seq_max`` and
+    ``seq_sum``), so every rank holds every head's output and runs the
+    whole output projection, with no sum over "model"."""
     mixer = kind.split("+")[0]
     window = cfg.sliding_window if mixer == "swa" else 0
     b, s, d = h.shape
@@ -146,12 +172,19 @@ def _attention_mixer(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
     sh = ctx.shards
     q0, nq = (0, nh) if sh is None else sh.local("act_heads", nh)
     k0, nk = (0, kv) if sh is None else sh.local("act_kv_heads", kv)
+    # the ring slots this rank holds: all, or its stretch of the sequence
+    clen = 0 if cache is None else ctx.ring[kind]
+    c0, n = (0, clen) if sh is None else sh.local("cache_seq", clen)
+    split_seq = n < clen
+    if split_seq:
+        assert cache["k"].shape[1] == n, (cache["k"].shape, n)
+        k0, nk = 0, kv
     # the cache's head_dim columns this rank holds: all, or its share
     hdc = hd if cache is None else cache["k"].shape[-1]
     h0 = 0 if hdc == hd else sh.rank("model") * hdc
     split_hd = ctx.mode == "decode" and hdc < hd
-    if split_hd:
-        q0, nq = 0, nh          # every head, on this rank's columns
+    if split_hd or (split_seq and ctx.mode == "decode"):
+        q0, nq = 0, nh          # every head, on this rank's columns or slots
     x = _norm(h, p["norm1"], cfg)
     q = (x @ _span(p["wq"], 1, q0, nq, hd).to(dt)).reshape(b, s, nq, hd)
     k = (x @ _span(p["wk"], 1, k0, nk, hd).to(dt)).reshape(b, s, nk, hd)
@@ -164,70 +197,84 @@ def _attention_mixer(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
     g = nh // kv
 
     if ctx.mode == "decode":
-        clen = cache["k"].shape[1]
-        slot = ctx.pos % clen
-        cache["k"][:, slot:slot + 1] = _span(k, 3, h0, hdc, 1).to(
-            cache["k"].dtype)
-        cache["v"][:, slot:slot + 1] = _span(v, 3, h0, hdc, 1).to(
-            cache["v"].dtype)
-        cache["slot_pos"][slot] = ctx.pos
+        for _, _, j in _ring_runs(ctx.pos, ctx.pos + 1, clen, c0, n):
+            cache["k"][:, j:j + 1] = _span(k, 3, h0, hdc, 1).to(
+                cache["k"].dtype)
+            cache["v"][:, j:j + 1] = _span(v, 3, h0, hdc, 1).to(
+                cache["v"].dtype)
+        cache["slot_pos"][ctx.pos % clen] = ctx.pos
         if split_hd:
             o = decode_attention(
                 _span(q, 3, h0, hdc, 1), cache["k"], cache["v"],
                 cache["slot_pos"], ctx.pos, window=window, scale=hd ** -0.5,
                 scores_sum=lambda t: sh.sum(t, "model"))
         else:
+            seq = {}
+            if split_seq:
+                axes = sh.rules.table["cache_seq"]
+                seq = dict(seq_max=lambda t: sh.max(t, axes),
+                           seq_sum=lambda t: sh.sum(t, axes))
             o = decode_attention(
                 q, _kv_serving(cache["k"], q0, nq, k0, g),
-                _kv_serving(cache["v"], q0, nq, k0, g), cache["slot_pos"],
-                ctx.pos, window=window)
+                _kv_serving(cache["v"], q0, nq, k0, g),
+                cache["slot_pos"][c0:c0 + n], ctx.pos, window=window, **seq)
     else:
         o = flash_attention(q, _kv_serving(k, q0, nq, k0, g),
                             _kv_serving(v, q0, nq, k0, g), causal=ctx.causal,
                             window=window, prefix_len=ctx.prefix_len)
         if ctx.mode == "prefill":
-            clen = cache["k"].shape[1]
-            keep = min(s, clen)
-            pos_keep = torch.arange(keep, device=h.device) + (s - keep)
-            slots = pos_keep % clen
-            cache["k"][:, slots] = _span(k[:, s - keep:], 3, h0, hdc, 1).to(
-                cache["k"].dtype)
-            cache["v"][:, slots] = _span(v[:, s - keep:], 3, h0, hdc, 1).to(
-                cache["v"].dtype)
-            cache["slot_pos"][slots] = pos_keep.to(cache["slot_pos"].dtype)
+            lo = s - min(s, clen)           # the positions the ring keeps
+            for a, e, j in _ring_runs(lo, s, clen, c0, n):
+                cache["k"][:, j:j + e - a] = _span(k[:, a:e], 3, h0, hdc,
+                                                   1).to(cache["k"].dtype)
+                cache["v"][:, j:j + e - a] = _span(v[:, a:e], 3, h0, hdc,
+                                                   1).to(cache["v"].dtype)
+            for a, e, j in _ring_runs(lo, s, clen, 0, clen):
+                cache["slot_pos"][j:j + e - a] = torch.arange(
+                    a, e, dtype=cache["slot_pos"].dtype, device=h.device)
 
     wo = p["wo"]
     if split_hd:
         wo = _span(wo.reshape(nh, hd, d), 1, h0, hdc, 1).reshape(-1, d)
     else:
         wo = _span(wo, 0, q0, nq, hd)
-    out = o.reshape(b, s, -1) @ wo.to(dt)
+    o = o.reshape(b, s, -1)
     if wo.shape[0] < nh * hd:        # a partial sum of this rank's heads
-        out = sh.sum(out, "model")
-    return h + out
+        return h + sh.dot(o, wo.to(dt))
+    return h + o @ wo.to(dt)
 
 
 def _cross_mixer(h, p, cfg: ModelConfig, ctx: Ctx, cache):
-    """Whisper decoder cross-attention over encoder outputs."""
+    """Whisper decoder cross-attention over encoder outputs.  Sharded, a
+    rank runs query heads [q0, q0 + nq) (``act_heads``, the heads of its
+    ``xk``/``xv`` caches) and its output projection is a partial sum over
+    "model"."""
     b, s, d = h.shape
     nh, hd = cfg.n_heads, cfg.head_dim
     dt = h.dtype
+    sh = ctx.shards
+    q0, nq = (0, nh) if sh is None else sh.local("act_heads", nh)
     x = _norm(h, p["norm_x"], cfg)
-    q = (x @ p["xwq"].to(dt)).reshape(b, s, nh, hd)
+    q = (x @ _span(p["xwq"], 1, q0, nq, hd).to(dt)).reshape(b, s, nq, hd)
     if ctx.mode == "decode":
         xk, xv = cache["xk"], cache["xv"]
         sp = torch.arange(xk.shape[1], dtype=torch.int32, device=h.device)
         o = decode_attention(q, xk, xv, sp, 2**30)
     else:
         enc = ctx.enc_out
-        xk = (enc @ p["xwk"].to(dt)).reshape(b, enc.shape[1], nh, hd)
-        xv = (enc @ p["xwv"].to(dt)).reshape(b, enc.shape[1], nh, hd)
+        xk = (enc @ _span(p["xwk"], 1, q0, nq, hd).to(dt)).reshape(
+            b, enc.shape[1], nq, hd)
+        xv = (enc @ _span(p["xwv"], 1, q0, nq, hd).to(dt)).reshape(
+            b, enc.shape[1], nq, hd)
         o = flash_attention(q, xk, xv, causal=False)
         if ctx.mode == "prefill":
             cache["xk"].copy_(xk)
             cache["xv"].copy_(xv)
-    out = o.reshape(b, s, nh * hd) @ p["xwo"].to(dt)
-    return h + out
+    o = o.reshape(b, s, nq * hd)
+    wo = _span(p["xwo"], 0, q0, nq, hd).to(dt)
+    if nq < nh:                      # a partial sum of this rank's heads
+        return h + sh.dot(o, wo)
+    return h + o @ wo
 
 
 def _apply_block(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
@@ -239,22 +286,22 @@ def _apply_block(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
     elif mixer == "mamba":
         x = _norm(h, p["norm1"], cfg)
         if ctx.mode == "full":
-            h = h + mamba_mixer(x, p, cfg)
+            h = h + mamba_mixer(x, p, cfg, shards=ctx.shards)
         else:
             out, (conv, hst) = mamba_mixer(
                 x, p, cfg, state=(cache["conv"], cache["h"]),
-                return_state=True)
+                return_state=True, shards=ctx.shards)
             h = h + out
             cache["conv"].copy_(conv)
             cache["h"].copy_(hst)
     elif mixer == "rwkv":
         x = _norm(h, p["norm1"], cfg)
         if ctx.mode == "full":
-            h = h + rwkv_mixer(x, p, cfg)
+            h = h + rwkv_mixer(x, p, cfg, shards=ctx.shards)
         else:
             out, (xa, sst) = rwkv_mixer(
                 x, p, cfg, state=(cache["xa"].to(x.dtype), cache["S"]),
-                return_state=True)
+                return_state=True, shards=ctx.shards)
             h = h + out
             cache["xa"].copy_(xa)
             cache["S"].copy_(sst)
@@ -268,8 +315,8 @@ def _apply_block(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
     if ffn == "mlp":
         # sharded over "mlp", w_down's products are partial sums
         split = p["w_down"].shape[0] < cfg.d_ff
-        h = h + mlp(x, p, cfg.mlp_act, reduce=(
-            (lambda t: ctx.shards.sum(t, "model")) if split else None))
+        h = h + mlp(x, p, cfg.mlp_act,
+                    dot=ctx.shards.dot if split else None)
     elif ffn == "moe":
         # as the reference (``repro/models/lm.py:194``): no router bits are
         # passed, so a model configured with router="tcam_dt" fails moe_ffn's
@@ -277,11 +324,11 @@ def _apply_block(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
         h = h + moe_ffn(x, p, cfg, shards=ctx.shards)
     elif ffn == "cmix":
         if ctx.mode == "full":
-            h = h + rwkv_channel_mix(x, p, cfg)
+            h = h + rwkv_channel_mix(x, p, cfg, shards=ctx.shards)
         else:
             out, xc = rwkv_channel_mix(x, p, cfg,
                                        state=cache["xc"].to(x.dtype),
-                                       return_state=True)
+                                       return_state=True, shards=ctx.shards)
             h = h + out
             cache["xc"].copy_(xc)
     else:
@@ -554,6 +601,13 @@ def _sharded_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
     return out
 
 
+def _ring_lens(caches) -> dict:
+    """Kind -> the slots of its KV caches' ring (a ``DTensor``'s global
+    length, which its local shard may not hold)."""
+    return {kind: leaves["k"].shape[2] for kind, leaves in caches.items()
+            if "k" in leaves}
+
+
 def _local_caches(caches, shards: Shards | None):
     """Sharded, the caches' local shards (written in place)."""
     if shards is None:
@@ -575,7 +629,8 @@ def prefill(params, cfg: ModelConfig, tokens, caches, *, frontend=None,
     s = h.shape[1]
     sin, cos = _rope_tables(cfg, torch.arange(s, device=h.device))
     ctx = Ctx(mode="prefill", sin=sin, cos=cos,
-              prefix_len=cfg.frontend_tokens, enc_out=enc_out, shards=shards)
+              prefix_len=cfg.frontend_tokens, enc_out=enc_out, shards=shards,
+              ring=_ring_lens(caches))
     h = _run_blocks(cfg, params["blocks"], _local_caches(caches, shards), h,
                     ctx)
     h = _norm(h, _w(shards, params["final_norm"]), cfg)
@@ -595,7 +650,8 @@ def decode_step(params, cfg: ModelConfig, token, caches, pos: int, *,
             h.dtype)
     # arange, not a tensor from a list: no host-to-device copy in the step
     sin, cos = _rope_tables(cfg, torch.arange(pos, pos + 1, device=h.device))
-    ctx = Ctx(mode="decode", sin=sin, cos=cos, pos=pos, shards=shards)
+    ctx = Ctx(mode="decode", sin=sin, cos=cos, pos=pos, shards=shards,
+              ring=_ring_lens(caches))
     h = _run_blocks(cfg, params["blocks"], _local_caches(caches, shards), h,
                     ctx)
     h = _norm(h, _w(shards, params["final_norm"]), cfg)

@@ -11,6 +11,14 @@ chunks of one token.
 
 The conv accumulates in f32 and the scan runs in f32; both return the
 input's dtype.  Decode is the single-token state update.
+
+Sharded over "model" (``act_dinner``), a rank runs its columns
+[d0, d0 + nd) of the inner dim: its columns of both halves of
+``in_proj``, its rows of the conv, ``A_log``, ``Dskip`` and ``dt_b``, its
+columns of ``dt_w``; ``x_proj`` contracts over the inner dim, so the
+(dt, B, C) projection is all-reduced in f32 before it is split, and
+``out_proj``'s rows give a partial sum over "model".  Its conv and SSM
+state are its columns' (the caches' ``act_dinner`` shards).
 """
 from __future__ import annotations
 
@@ -57,15 +65,20 @@ def _ssm_chunk(h0: torch.Tensor, dA: torch.Tensor, dBx: torch.Tensor,
 
 
 def _ssm(x: torch.Tensor, p: dict, cfg: ModelConfig,
-         h0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+         h0: torch.Tensor | None = None, xdb_sum=None
+         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Selective scan over the full sequence in chunks.
-    x (B, S, Di) post-conv activations; returns (y (B,S,Di), h_final)."""
+    x (B, S, Di) post-conv activations; returns (y (B,S,Di), h_final).
+    ``xdb_sum`` adds up the (dt, B, C) projection of a rank's columns of
+    the inner dim over the ranks."""
     bsz, s, di = x.shape
     n = cfg.ssm_state
     dtr = cfg.dt_rank
     xf = x.float()
 
     xdb = xf @ p["x_proj"].float()
+    if xdb_sum is not None:
+        xdb = xdb_sum(xdb)
     dt, bmat, cmat = torch.split(xdb, [dtr, n, n], dim=-1)
     dt = F.softplus(dt @ p["dt_w"].float() + p["dt_b"].float())  # (B, S, Di)
     a = -torch.exp(p["A_log"].float())                             # (Di, N)
@@ -91,22 +104,45 @@ def _ssm(x: torch.Tensor, p: dict, cfg: ModelConfig,
     return y.to(x.dtype), h
 
 
+def _local(p: dict, d0: int, nd: int) -> dict:
+    """The mixer's params for inner-dim columns [d0, d0 + nd)."""
+    di = p["conv_w"].shape[0]
+    if nd == di:
+        return p
+    cols = slice(d0, d0 + nd)
+    return dict(
+        p, in_proj=torch.cat([p["in_proj"][:, cols],
+                              p["in_proj"][:, di + d0:di + d0 + nd]], dim=1),
+        conv_w=p["conv_w"][cols], conv_b=p["conv_b"][cols],
+        x_proj=p["x_proj"][cols], dt_w=p["dt_w"][:, cols],
+        dt_b=p["dt_b"][cols], A_log=p["A_log"][cols],
+        Dskip=p["Dskip"][cols], out_proj=p["out_proj"][cols])
+
+
 def mamba_mixer(
     x: torch.Tensor,              # (B, S, D) post-norm residual stream
     p: dict,
     cfg: ModelConfig,
     state: tuple | None = None,   # (conv_prev (B,K-1,Di), h (B,Di,N))
     return_state: bool = False,
+    shards=None,                  # sharded serving: this rank's part
 ):
     dt = x.dtype
+    di = p["conv_w"].shape[0]
+    d0, nd = (0, di) if shards is None else shards.local("act_dinner", di)
+    p = _local(p, d0, nd)
+    split = nd < di
     xz = x @ p["in_proj"].to(dt)
     xin, z = xz.chunk(2, dim=-1)                            # (B,S,Di) each
     conv_prev = state[0] if state is not None else None
     h0 = state[1] if state is not None else None
     xc = F.silu(_conv_causal(xin, p["conv_w"], p["conv_b"], conv_prev))
-    y, h = _ssm(xc, p, cfg, h0)
+    y, h = _ssm(xc, p, cfg, h0, xdb_sum=(
+        (lambda t: shards.sum(t, "model")) if split else None))
     y = y * F.silu(z)
-    out = y @ p["out_proj"].to(dt)
+    w = p["out_proj"].to(dt)
+    # sharded, a partial sum of this rank's columns
+    out = shards.dot(y, w) if split else y @ w
     if return_state:
         k = cfg.ssm_conv
         if conv_prev is None:

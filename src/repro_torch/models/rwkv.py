@@ -16,6 +16,15 @@ The token shift and the five mixes run in the input's dtype; the decay, the
 WKV chunks and the per-head group norm in f32.
 
 Decode is the same mixer on one token: S_t = diag(w_t) S_{t-1} + k_t v_tᵀ.
+
+Sharded over "model" (``act_heads``), a rank runs its heads
+[h0, h0 + nh): its columns of the r/k/v/g projections and of the
+low-rank decay's output (and of ``w_base``), its rows of ``u`` and of the
+per-head group norm; ``wo``'s rows give a partial sum over "model".  The
+WKV state cache is whole on every rank, so the rank reads its heads' part
+and all-gathers the new state over "model".  The token shift and the
+mixes run alike on every rank.  The channel mix's ``cm_k``/``cm_v`` are
+split over ``mlp``, so its value product is a partial sum over "model".
 """
 from __future__ import annotations
 
@@ -52,10 +61,12 @@ def _proj(x, w, dt):
 
 def _mix_heads(x: torch.Tensor, x_prev: torch.Tensor, p: dict,
                cfg: ModelConfig):
-    """Token-shift mixing + projections -> per-head r, k, v, g, log-decay."""
+    """Token-shift mixing + projections -> per-head r, k, v, g, log-decay
+    (of the heads whose columns ``p`` holds)."""
     dt = x.dtype
     b, s, d = x.shape
-    h, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+    hd = cfg.rwkv_head_dim
+    h = p["wr"].shape[1] // hd
     shifted = torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
     mu = p["mu"].to(dt)                                      # (5, D)
     xs = [x + mu[i] * (shifted - x) for i in range(5)]       # r k v w g
@@ -94,17 +105,32 @@ def _wkv_chunk(s_in, r, k, v, logw, u):
     return s_out, y
 
 
+def _local(p: dict, h0: int, nh: int, hd: int) -> dict:
+    """The time mix's params for heads [h0, h0 + nh)."""
+    if nh == p["u"].shape[0]:
+        return p
+    cols = slice(h0 * hd, (h0 + nh) * hd)
+    return dict(p, wr=p["wr"][:, cols], wk=p["wk"][:, cols],
+                wv=p["wv"][:, cols], wg=p["wg"][:, cols],
+                w_lora_b=p["w_lora_b"][:, cols], w_base=p["w_base"][cols],
+                u=p["u"][h0:h0 + nh], ln_x=p["ln_x"][cols],
+                wo=p["wo"][cols])
+
+
 def rwkv_mixer(
     x: torch.Tensor,              # (B, S, D)
     p: dict,
     cfg: ModelConfig,
     state: tuple | None = None,   # (x_prev (B,D), S (B,H,hd,hd))
     return_state: bool = False,
+    shards=None,                  # sharded serving: this rank's part
 ):
     b, s, d = x.shape
-    h, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+    hs, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+    h0, h = (0, hs) if shards is None else shards.local("act_heads", hs)
+    p = _local(p, h0, h, hd)
     x_prev = state[0] if state is not None else x.new_zeros((b, d))
-    s_st = (state[1] if state is not None else
+    s_st = (state[1][:, h0:h0 + h] if state is not None else
             torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device))
     r, k, v, logw, g = _mix_heads(x, x_prev, p, cfg)
 
@@ -121,10 +147,15 @@ def rwkv_mixer(
         ys.append(y)
     y = torch.cat(ys, dim=2).transpose(1, 2)                 # (B,S,H,hd)
     # per-head group norm, then gate and output projection
-    y = rms_norm(y, p["ln_x"].reshape(h, hd), cfg.norm_eps).reshape(b, s, d)
+    y = rms_norm(y, p["ln_x"].reshape(h, hd), cfg.norm_eps).reshape(
+        b, s, h * hd)
     y = (y * g).to(x.dtype)
-    out = y @ p["wo"].to(x.dtype)
+    w = p["wo"].to(x.dtype)
+    # sharded, a partial sum of this rank's heads
+    out = shards.dot(y, w) if h < hs else y @ w
     if return_state:
+        if h < hs:                   # the cache holds every head's state
+            s_st = shards.gather(s_st, "model", 1)
         return out, (x[:, -1, :], s_st)
     return out
 
@@ -137,6 +168,7 @@ def rwkv_channel_mix(
     x: torch.Tensor, p: dict, cfg: ModelConfig,
     state: torch.Tensor | None = None,    # x_prev (B, D)
     return_state: bool = False,
+    shards=None,                  # sharded serving: this rank's part
 ):
     b, s, d = x.shape
     dt = x.dtype
@@ -146,7 +178,9 @@ def rwkv_channel_mix(
     xk = x + mu[0] * (shifted - x)
     xr = x + mu[1] * (shifted - x)
     kk = torch.square(torch.relu(xk @ p["cm_k"].to(dt)))
-    vv = kk @ p["cm_v"].to(dt)
+    w = p["cm_v"].to(dt)
+    # split over "mlp", a partial sum of this rank's rows
+    vv = shards.dot(kk, w) if w.shape[0] < cfg.d_ff else kk @ w
     rr = torch.sigmoid(xr @ p["cm_r"].to(dt))
     out = rr * vv
     if return_state:

@@ -11,9 +11,15 @@ rules, the global batch, this rank's rows of it, and
   JAX package's gather-at-use (``_gather_fsdp``), done inside the layer
   loop so that one layer's gathered weights live at a time;
 - ``local``: the range of an activation dim (``act_heads``,
-  ``act_kv_heads``) that this rank computes;
-- ``sum`` and ``gather``: all-reduce (in f32) and all-gather over one
-  mesh axis;
+  ``act_kv_heads``, ``act_dinner``) that this rank computes, or of the
+  ring slots (``cache_seq``, split over ("data", "model") in the batch-1
+  long-context layout) that it holds;
+- ``sum`` and ``max``: all-reduce (``sum`` in f32) over one mesh axis or
+  a tuple of them; ``gather``: all-gather over one axis;
+- ``dot``: a product whose contraction is split over "model" (an output
+  projection's rows), each rank's part accumulated in f32 and summed
+  unrounded, so the sum is rounded to the compute dtype once, as the
+  unsharded product rounds it;
 - ``lookup``: the vocab-parallel embedding lookup.
 
 Every collective over an axis of size 1 returns its input itself and every
@@ -32,7 +38,7 @@ import torch
 
 from .rules import Rules
 
-__all__ = ["Shards", "as_dtensor"]
+__all__ = ["Shards", "as_dtensor", "product_f32"]
 
 AXES = ("data", "model")
 
@@ -40,6 +46,20 @@ AXES = ("data", "model")
 def _wait(t: torch.Tensor) -> torch.Tensor:
     """A functional collective's result as a plain tensor."""
     return t.wait() if hasattr(t, "wait") else t
+
+
+def product_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` accumulated in f32 and not rounded to ``x``'s dtype.  A
+    product of two bf16 values is exact in f32, so on the CPU the f32
+    copies' product is what the bf16 GEMM accumulates; on the card
+    ``torch.mm(..., out_dtype=)`` keeps the bf16 tensor cores."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
 
 
 def as_dtensor(local: torch.Tensor, rules: Rules, logical, shape):
@@ -85,37 +105,77 @@ class Shards:
     def rank(self, axis: str) -> int:
         return self.mesh.get_local_rank(axis)
 
-    def local(self, logical: str, n: int) -> tuple:
-        """(first, count) of the ``n`` entries of activation dim
-        ``logical`` that this rank computes: its share where the rules
-        split the dim over an axis of size > 1 that divides ``n``, else
-        all of them."""
-        axis = self.rules.table.get(logical)
-        if axis is None or isinstance(axis, tuple) or self.size(axis) == 1 \
-                or n % self.size(axis):
-            return 0, n
-        k = n // self.size(axis)
-        return self.rank(axis) * k, k
+    def index(self, axis) -> int:
+        """This rank's index along ``axis``, a mesh axis or a tuple of
+        them; over a tuple data-major, the order of ``Rules.placements``
+        and ``models.params.shard_params``."""
+        idx = 0
+        for a in (axis if isinstance(axis, tuple) else (axis,)):
+            idx = idx * self.size(a) + self.rank(a)
+        return idx
 
-    # -- collectives over one axis ----------------------------------------------
-    def sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
-        """The sum of ``t`` over the ranks along ``axis``, added in f32 and
-        returned in ``t``'s dtype."""
-        if self.size(axis) == 1:
-            return t
+    def local(self, logical: str, n: int) -> tuple:
+        """(first, count) of the ``n`` entries of dim ``logical`` that this
+        rank computes or holds: its share where the rules split the dim
+        over axes whose product divides ``n``, else all of them."""
+        axis = self.rules.table.get(logical)
+        size = self.rules.axis_size(axis)
+        if axis is None or size == 1 or n % size:
+            return 0, n
+        k = n // size
+        return self.index(axis) * k, k
+
+    # -- collectives --------------------------------------------------------------
+    def _groups(self, axis) -> list:
+        """The process groups one reduction over ``axis`` (a mesh axis or a
+        tuple of them) runs on, one after another: none for axes of size
+        1, the default group where the axes are every rank of the job."""
+        live = [a for a in (axis if isinstance(axis, tuple) else (axis,))
+                if self.size(a) > 1]
+        if len(live) > 1:
+            import torch.distributed as dist
+            if self.mesh.size() == dist.get_world_size():
+                return [dist.group.WORLD]
+        return [self.rules.group(a) for a in live]
+
+    def _all_reduce(self, t: torch.Tensor, op: str, axis) -> torch.Tensor:
         import torch.distributed._functional_collectives as funcol
-        return _wait(funcol.all_reduce(t.float(), "sum",
-                                       self.rules.group(axis))).to(t.dtype)
+        for group in self._groups(axis):
+            t = _wait(funcol.all_reduce(t, op, group))
+        return t
+
+    def sum(self, t: torch.Tensor, axis) -> torch.Tensor:
+        """The sum of ``t`` over the ranks along ``axis`` (a mesh axis or a
+        tuple of them), added in f32 and returned in ``t``'s dtype."""
+        if not self._groups(axis):
+            return t
+        return self._all_reduce(t.float(), "sum", axis).to(t.dtype)
+
+    def max(self, t: torch.Tensor, axis) -> torch.Tensor:
+        """The elementwise max of ``t`` over the ranks along ``axis``."""
+        if not self._groups(axis):
+            return t
+        return self._all_reduce(t, "max", axis)
+
+    def dot(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``x @ w`` where this rank holds a part of the contraction
+        (columns of ``x``, the same rows of ``w``): the part accumulated in
+        f32, summed over "model" in f32 and rounded to ``x``'s dtype once,
+        as the whole product rounds its sum.  (A part rounded first would
+        round every element again, which a bf16 recurrence carries on.)"""
+        return self.sum(product_f32(x, w), "model").to(x.dtype)
 
     def gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """The ranks' ``t`` along ``axis`` concatenated on ``dim``, in the
-        ranks' order on the axis."""
-        if self.size(axis) == 1:
+        ranks' order on the axis: gathered on dim 0, where every version's
+        functional all-gather stacks the ranks, then moved to ``dim`` here."""
+        n = self.size(axis)
+        if n == 1:
             return t
         import torch.distributed._functional_collectives as funcol
-        gather = getattr(funcol, "all_gather_single",    # newer PyTorch
-                         funcol.all_gather_tensor)
-        return _wait(gather(t.contiguous(), dim, self.rules.group(axis)))
+        out = _wait(funcol.all_gather_tensor(t.contiguous(), 0,
+                                             self.rules.group(axis)))
+        return out if dim == 0 else torch.cat(out.chunk(n, dim=0), dim=dim)
 
     # -- params at use ----------------------------------------------------------
     def at_use(self, leaf, idx: Optional[int] = None) -> torch.Tensor:

@@ -369,23 +369,12 @@ def build_train_step(
 # ---------------------------------------------------------------------------
 # serving steps, unsharded or over a (data, model) DeviceMesh
 # ---------------------------------------------------------------------------
-_NEXT_SLICE = ("tensor-parallel serving of the recurrent and "
-               "encoder-decoder families (act_dinner, rwkv heads, "
-               "cross-attention) is the next slice of the port")
-
-
-def _serving_mesh(cfg: ModelConfig, rules: Rules):
-    """``rules.mesh`` as a ``DeviceMesh`` the serving steps run on; raises
-    where the configuration needs what they cannot do."""
+def _serving_mesh(rules: Rules):
+    """``rules.mesh`` as a ``DeviceMesh`` the serving steps run on."""
     mesh = rules.mesh
     if not hasattr(mesh, "get_local_rank"):
         raise TypeError("sharded serving runs over a DeviceMesh "
                         "(launch.mesh_for_devices), not a mesh shape")
-    mixers = {kind.split("+")[0] for kind in cfg.pattern}
-    if rules.sizes.get("model", 1) > 1 and (
-            mixers - {"attn", "swa"} or cfg.is_encdec):
-        raise ValueError(f"{cfg.name} on mesh {rules.sizes}: a 'model' axis "
-                         f"larger than 1 needs {_NEXT_SLICE}")
     return mesh
 
 
@@ -425,15 +414,25 @@ def build_prefill_step(cfg: ModelConfig, rules: Optional[Rules] = None):
     global batch, the same on every rank; each rank runs its rows
     (``act_batch``) on its shards, the collectives explicit
     (``models.lm``), and the logits come back as the ``DTensor`` of the
-    global ones.  A "model" axis larger than 1 takes the attention
-    families only."""
+    global ones.  Every configuration serves on a mesh of any sizes.  Under
+    ``make_rules(mesh)`` the batch is split over "data"; over "model" the
+    query and kv heads (attention, whisper's cross-attention and its
+    ``xk``/``xv`` caches, rwkv6's time mix), the MLP's and the channel
+    mix's hidden dim, the experts, mamba's inner dim (and its ``conv``/
+    ``h`` caches) and the vocab, where "model" divides them; the KV caches
+    by kv heads, or by ``head_dim`` where the kv heads do not divide.
+    Under the batch-1 long-context rules (``make_rules(mesh,
+    batch_divisible=False, seq_sharded_decode=True)``) every rank takes
+    the whole batch, the KV caches are split by ring slots over ("data",
+    "model") and decode combines the ranks' softmax over them; the rest
+    splits over "model" as above."""
     if rules is None:
         def prefill_step(params, batch, caches):
             return prefill(params, cfg, batch["tokens"], caches,
                            frontend=batch.get("patches"),
                            frames=batch.get("frames"))
         return prefill_step
-    _serving_mesh(cfg, rules)
+    _serving_mesh(rules)
 
     def sharded_prefill(params, batch, caches):
         batch = {k: torch.as_tensor(v) for k, v in batch.items()}
@@ -455,7 +454,7 @@ def build_decode_step(cfg: ModelConfig, rules: Optional[Rules] = None):
         def serve_step(params, token, caches, pos):
             return decode_step(params, cfg, token, caches, pos)
         return serve_step
-    _serving_mesh(cfg, rules)
+    _serving_mesh(rules)
 
     def sharded_decode(params, token, caches, pos):
         token = torch.as_tensor(token)

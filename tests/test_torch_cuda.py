@@ -1243,3 +1243,105 @@ def test_sharded_serving_on_a_mesh_of_one_equals_unsharded(cuda, tmp_path):
                                           for a, b in zip(gc, wc))
     finally:
         dist.destroy_process_group()
+
+
+def _served_pair(dev, tmp_path, cfg, rules_of, batch: int, prompt: int,
+                 steps: int, max_seq: int):
+    """A prefill of ``batch`` x ``prompt`` ``make_batch`` tokens (whisper's
+    frames too) and ``steps`` greedy decode steps in bf16, through the
+    unsharded builders and through the sharded ones under ``rules_of(mesh)``
+    on a mesh of one card (an NCCL process group of one), on the same
+    tensors: (logits of every stage, whole cache leaves) of each."""
+    import torch.distributed as dist
+
+    from repro_torch.data import make_batch
+    from repro_torch.launch import mesh_for_devices
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.params import shard_params
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train import build_decode_step, build_prefill_step
+    b = make_batch(cfg, batch, prompt, seed=0)
+    inputs = {"tokens": torch.from_numpy(b["tokens"]).to(dev)}
+    if cfg.is_encdec:
+        inputs["frames"] = torch.from_numpy(b["frames"]).to(dev)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    try:
+        rules = rules_of(mesh_for_devices(1))
+        params = init_params(cfg, 0, device=dev)
+        out = []
+        for p, r in ((params, None), (shard_params(params, cfg, rules),
+                                      rules)):
+            caches = init_cache(cfg, batch, max_seq, device=dev, rules=r)
+            logits, caches = build_prefill_step(cfg, r)(p, inputs, caches)
+            decode = build_decode_step(cfg, r)
+            seen = []
+            for i in range(steps):
+                seen.append((logits.full_tensor() if r else logits).clone())
+                logits, caches = decode(p, seen[-1][:, -1:].argmax(-1),
+                                        caches, prompt + i)
+            seen.append((logits.full_tensor() if r else logits).clone())
+            out.append((seen, [t.full_tensor() if r else t
+                               for t in tree_leaves(caches)]))
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["jamba_v01_52b", "rwkv6_1p6b",
+                                  "whisper_small"])
+def test_families_sharded_serving_on_a_mesh_of_one_equals_unsharded(
+        cuda, tmp_path, arch):
+    """The reduced recurrent and encoder-decoder configs under the serving
+    rules on a mesh of one card: a prefill of 4 x 16 tokens and 4 greedy
+    decode steps give the unsharded path's logits and caches bit for bit
+    (bf16)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.sharding import make_rules
+    (want, wc), (got, gc) = _served_pair(cuda, tmp_path, get_reduced(arch),
+                                         make_rules, 4, 16, 4, 20)
+    assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(got, want))
+    assert len(gc) == len(wc) and all(torch.equal(a, b)
+                                      for a, b in zip(gc, wc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["h2o_danube_1p8b", "jamba_v01_52b",
+                                  "rwkv6_1p6b"])
+def test_long_context_on_a_mesh_of_one_equals_unsharded(cuda, tmp_path,
+                                                        arch):
+    """The batch-1 long-context rules on a mesh of one card: a prompt of
+    20 tokens past danube's 16-slot window and 10 greedy decode steps over
+    caches of 32 slots give the unsharded path's logits and caches bit for
+    bit (bf16)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.sharding import make_rules
+
+    def long_rules(mesh):
+        return make_rules(mesh, batch_divisible=False,
+                          seq_sharded_decode=True)
+    (want, wc), (got, gc) = _served_pair(cuda, tmp_path, get_reduced(arch),
+                                         long_rules, 1, 20, 10, 32)
+    assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(got, want))
+    assert len(gc) == len(wc) and all(torch.equal(a, b)
+                                      for a, b in zip(gc, wc))
+
+
+@pytest.mark.gpu
+def test_product_f32_on_card(cuda):
+    """``collectives.product_f32`` of bf16 operands on the card (the bf16
+    GEMM with an f32 output) is f32 and equals the product of their f32
+    copies within f32 rounding; f32 operands multiply as they are."""
+    from repro_torch.sharding.collectives import product_f32
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((3, 40, 256), generator=gen, device=cuda).bfloat16()
+    w = torch.randn((256, 96), generator=gen, device=cuda).bfloat16()
+    got = product_f32(x, w)
+    assert got.dtype == torch.float32 and got.shape == (3, 40, 96)
+    want = x.double() @ w.double()
+    assert torch.allclose(got.double(), want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(product_f32(x.float(), w.float()),
+                       x.float() @ w.float())

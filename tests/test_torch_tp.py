@@ -9,9 +9,11 @@ runs every case and the tests read the results.  The meshes:
 
 - (1, 1): the sharded path equals the unsharded one bit for bit, and
   ``shard_params`` copies nothing;
-- (2, 1): data-parallel serving of all ten configurations, the weights
-  gathered at use over "data" (jamba's two MoE groups split over it);
-- (1, 2): heads, kv heads, ``mlp``, experts and vocab split in two;
+- (2, 1): data-parallel serving, the weights gathered at use over
+  "data" (jamba's two MoE groups split over it);
+- (1, 2): heads, kv heads, ``mlp``, experts and vocab split in two, and
+  jamba's mamba inner dim, rwkv6's heads (its WKV state gathered back
+  whole) and whisper's cross-attention heads;
 - (2, 2): the MoE groups split over "data" in prefill, while a decode
   batch of 4 is one token group (``g = 1``) that spans both data ranks;
 - (1, 4): qwen3's and phi3's two kv heads do not divide 4, so their
@@ -19,6 +21,8 @@ runs every case and the tests read the results.  The meshes:
   paligemma's one kv head likewise;
 - (1, 3): no dim of the reduced configs divides 3, so everything is
   replicated.
+
+Every mesh serves all ten configurations.
 
 The reduced configs, ``make_batch`` tokens (paligemma's patches,
 whisper's frames): a prefill of 4 x 16 text tokens, then 4 decode steps on
@@ -57,8 +61,8 @@ the first run:
   tell a rank's own capacity from the global batch's);
 - each rank's param and cache shards have the local shapes of
   ``input_specs``' specs on that mesh;
-- on a "model" axis larger than 1, rwkv6, whisper, jamba and the train
-  step raise ``ValueError``.
+- on a "model" axis larger than 1 the train step raises ``ValueError``
+  (serving takes every configuration there).
 
 The spawns run in a thread while the parent makes the JAX references
 (about 100 s in all on one worker).
@@ -82,16 +86,13 @@ ATTN = ("olmo_1b", "gemma_7b", "h2o_danube_1p8b", "phi3_medium_14b",
         "paligemma_3b", "qwen3_moe_235b_a22b", "dbrx_132b")
 RECURRENT = ("jamba_v01_52b", "rwkv6_1p6b", "whisper_small")
 MESHES = ((1, 1), (2, 1), (1, 2), (2, 2), (1, 4), (1, 3))
+ARCHS = ATTN + RECURRENT
 DTYPES = ("float32", "bfloat16")
 B, S, STEPS = 4, 16, 4
 MOE, MOE_SEQ, MOE_GROUPS = "qwen3_moe_235b_a22b", 48, (1, 3, 4)
 F32_JAX = dict(rtol=1e-4, atol=1e-4)
 F32_PORT = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=5e-2, atol=5e-2)
-
-
-def _archs(shape):
-    return ATTN + RECURRENT if shape[1] == 1 else ATTN
 
 
 def _leaves(arch) -> dict:
@@ -280,29 +281,21 @@ def serve_ranks(rank, world, out, shape, leaves, replay):
 
     from repro_torch.optim import AdamWConfig
     from repro_torch.sharding import make_rules
-    from repro_torch.train import build_prefill_step, build_train_step
+    from repro_torch.train import build_train_step
     mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
     rules = make_rules(mesh)
     res = {(arch, dtype): _port_run(
         arch, leaves[arch], dtype, rules,
         replay.get(arch) if dtype == "bfloat16" else None)
-        for arch in _archs(shape) for dtype in DTYPES}
+        for arch in ARCHS for dtype in DTYPES}
     res["moe_layer"] = _moe_layer(rules, leaves[MOE])
     if shape[1] > 1:
-        raised = {}
-        for arch in RECURRENT:
-            try:
-                build_prefill_step(get_reduced(arch), rules)
-                raised[arch] = None
-            except ValueError as e:
-                raised[arch] = str(e)
         try:
             build_train_step(get_reduced("olmo_1b"), AdamWConfig(),
                              rules=rules)
-            raised["train"] = None
+            res["train_raises"] = None
         except ValueError as e:
-            raised["train"] = str(e)
-        res["raises"] = raised
+            res["train_raises"] = str(e)
     if shape == (1, 1):
         from repro_torch.convert import lm_params_from_arrays
         from repro_torch.models.params import shard_params
@@ -386,8 +379,7 @@ def runs(tmp_path_factory, one_thread):
     only), then every mesh's spawn (in a thread, one after another) while
     the other JAX references and the port's unsharded runs are made
     here."""
-    archs = ATTN + RECURRENT
-    leaves = {arch: _leaves(arch) for arch in archs}
+    leaves = {arch: _leaves(arch) for arch in ARCHS}
     moe = [a for a in ATTN if get_reduced(a).n_experts]
     jax_ref = {(a, "bfloat16"): _jax_run(a, leaves[a], "bfloat16")
                for a in moe}
@@ -409,7 +401,7 @@ def runs(tmp_path_factory, one_thread):
             arch = case[1]
             if (arch, dtype) not in jax_ref:
                 jax_ref[arch, dtype] = _jax_run(arch, leaves[arch], dtype)
-        for arch in archs:
+        for arch in ARCHS:
             for dtype in DTYPES:
                 if (arch, dtype) not in port:
                     port[arch, dtype] = _port_run(
@@ -419,7 +411,7 @@ def runs(tmp_path_factory, one_thread):
 
 
 def _cases():
-    return [(shape, arch) for shape in MESHES for arch in _archs(shape)]
+    return [(shape, arch) for shape in MESHES for arch in ARCHS]
 
 
 def _id(case):
@@ -523,7 +515,7 @@ def test_sharded_equals_jax(runs, case, dtype):
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_shards_have_the_local_shapes_of_input_specs(runs, shape):
     for got in runs["ranks"][shape]:
-        for arch in _archs(shape):
+        for arch in ARCHS:
             sh = got[arch, "float32"]["shards"]
             assert sh["got"] == sh["want"], arch
 
@@ -551,14 +543,39 @@ def test_shards_are_split_where_the_rules_say(runs):
     assert local((1, 1), "/params/embed") == (cfg.vocab_size, d)
 
 
+def test_recurrent_shards_are_split_where_the_rules_say(runs):
+    """jamba's mamba caches split its inner dim over "model", whisper's
+    cross-attention caches its heads, rwkv6's WKV state stays whole (each
+    rank gathers its heads' new state back) while its channel mix's hidden
+    dim splits at rest; on (1, 3) nothing divides."""
+    def local(shape, arch, path):
+        return runs["ranks"][shape][0][arch, "float32"]["shards"]["got"][
+            path]
+
+    jamba, rwkv, whisper = (get_reduced(a) for a in RECURRENT)
+    di, n, k = jamba.d_inner, jamba.ssm_state, jamba.ssm_conv
+    for shape, m in (((1, 1), 1), ((1, 2), 2), ((2, 2), 2), ((1, 4), 4),
+                     ((1, 3), 1)):
+        b = B // shape[0]
+        assert local(shape, "jamba_v01_52b", "/caches/mamba+mlp/conv") == \
+            (3, b, k - 1, di // m)
+        assert local(shape, "jamba_v01_52b", "/caches/mamba+moe/h") == \
+            (4, b, di // m, n)
+        assert local(shape, "whisper_small", "/caches/attn+mlp/xk") == (
+            2, b, whisper.encoder_seq, whisper.n_heads // m,
+            whisper.head_dim)
+        assert local(shape, "rwkv6_1p6b", "/caches/rwkv+cmix/S") == (
+            2, b, rwkv.rwkv_heads, rwkv.rwkv_head_dim, rwkv.rwkv_head_dim)
+        assert local(shape, "rwkv6_1p6b",
+                     "/params/blocks/rwkv+cmix/cm_k") == (
+            2, rwkv.d_model // shape[0], rwkv.d_ff // m)
+
+
 @pytest.mark.parametrize("shape", [s for s in MESHES if s[1] > 1],
                          ids=lambda s: f"{s[0]}x{s[1]}")
-def test_model_axis_raises_outside_the_attention_families(runs, shape):
-    raised = runs["ranks"][shape][0]["raises"]
-    for arch in RECURRENT:
-        assert raised[arch] and "next slice" in raised[arch], arch
-    assert raised["train"] and "'model' axis larger than 1" in \
-        raised["train"]
+def test_model_axis_raises_in_the_train_step(runs, shape):
+    raised = runs["ranks"][shape][0]["train_raises"]
+    assert raised and "'model' axis larger than 1" in raised
 
 
 @pytest.mark.parametrize("groups", MOE_GROUPS)

@@ -4,15 +4,17 @@ costs and answers on real collectives.
 
 ``--cards`` processes, one card each, join one NCCL process group
 (``tcp://localhost``, a free port).  For each ``--arch`` (at its published
-widths, cut to ``--layers`` layers, weights from ``--seed`` on every card
-alike) and each ``--meshes`` shape (data x model, its product the number
-of cards), every rank:
+widths, cut to ``--layers`` layers, by default ``CUT``'s or all of them,
+weights from ``--seed`` on every card alike) and each ``--meshes`` shape
+(data x model, its product the number of cards), every rank:
 
 - runs the unsharded builders on its own card (the whole model) as the
   reference: a check of ``CHECK_BATCH`` x ``CHECK_PROMPT`` tokens and
   ``CHECK_STEPS`` decode steps on fixed tokens in f32 compute, then the
   timed cell in bf16 (``--batch`` x ``--prompt``, ``--steps`` decode steps
-  on fixed tokens, CUDA events after one warm-up prefill);
+  on fixed tokens, CUDA events after one warm-up prefill); an
+  encoder-decoder takes its ``make_batch`` frames and at most 448 text
+  tokens (whisper's published context);
 - runs the same through ``build_prefill_step``/``build_decode_step`` under
   ``make_rules(mesh)`` on ``shard_params`` of the same weights (the whole
   model freed first, so a card holds its shards only) and holds every
@@ -22,6 +24,14 @@ of cards), every rank:
 - reports the timed cell's prefill and median decode ms (the slowest
   rank's) and peak memory beside the reference's.
 
+``--long`` serves the batch-1 long-context layout instead
+(``make_rules(mesh, batch_divisible=False, seq_sharded_decode=True)``):
+batch 1, caches of ``--max-seq`` slots split by ring slots over every
+card, so each decode step combines the softmax across cards; the f32
+check of a sliding-window config takes ``PAST_WINDOW`` tokens more than
+its window (danube: 4608 against 4096 slots), so its ring wraps and every
+card's stretch holds positions.
+
 Rank 0 prints one JSON line per (arch, mesh) and a last line
 ``{"ok": ...}``; the exit code is 1 if a check failed.  The weights of
 every card are checked equal first (a sum over every leaf).
@@ -29,9 +39,14 @@ every card are checked equal first (a sum over every leaf).
     python3 tools/tp_serve_probe.py --cards 4 --meshes 1x4,2x2,4x1
     python3 tools/tp_serve_probe.py --cards 4 --arch phi3_medium_14b \\
         --meshes 1x4            # kv heads 10: the cache splits head_dim
+    python3 tools/tp_serve_probe.py --cards 4 \\
+        --arch rwkv6_1p6b,whisper_small,jamba_v01_52b
+    python3 tools/tp_serve_probe.py --cards 4 --long \\
+        --arch jamba_v01_52b,h2o_danube_1p8b
 
 ``--device cpu --reduced`` runs the same on ``gloo`` with the reduced
-configs (a rehearsal; times there are not device times).
+configs (a rehearsal; times there are not device times; with ``--long``
+give a small ``--max-seq``).
 """
 from __future__ import annotations
 
@@ -49,8 +64,15 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 CHECK_BATCH, CHECK_PROMPT, CHECK_STEPS = 2, 256, 4
+PAST_WINDOW = 512    # --long: the f32 check's prompt past a window
 F32_TOL = 1e-3       # abs, whole logits and cache leaves, f32 compute
 TIMEOUT_S = 300      # a collective that waits longer fails the run
+# default layers (else all).  rwkv6: deeper random stacks carry the f32
+# reorder noise of a split contraction past F32_TOL (in the WKV state, on
+# (1, 4): 7.2e-5 at 2 layers, 0.021 at 8, 1.9 at 24; PERF.md)
+CUT = {"qwen3_moe_235b_a22b": 4, "phi3_medium_14b": 4, "jamba_v01_52b": 8,
+       "rwkv6_1p6b": 2}
+TEXT_CONTEXT = 448   # an encoder-decoder's text tokens at most
 
 
 def _whole(t):
@@ -58,21 +80,26 @@ def _whole(t):
     return (t.full_tensor() if isinstance(t, DTensor) else t).clone()
 
 
-def _run(cfg, params, toks, steps, dtype, dev, rules=None,
-         timed=False) -> dict:
-    """Prefill ``toks[:, :-steps]`` then ``steps`` decode steps on the
-    next tokens: whole logits of every stage and whole caches, or (timed)
-    the times and peak memory."""
+def _run(cfg, params, toks, steps, dtype, dev, rules=None, timed=False,
+         extra=None, max_seq=None) -> dict:
+    """Prefill ``toks[:, :-steps]`` (and ``extra``: an encoder-decoder's
+    frames) then ``steps`` decode steps on the next tokens, on caches of
+    ``max_seq`` slots (default: every token's): whole logits of every
+    stage and whole caches, or (timed) the times and peak memory."""
     import torch
 
     from repro_torch.models import init_cache
-    from repro_torch.pytree import tree_leaves
     from repro_torch.train import build_decode_step, build_prefill_step
     prefill = build_prefill_step(cfg, rules)
     decode = build_decode_step(cfg, rules)
     b, n = toks.shape
     s = n - steps
-    caches = init_cache(cfg, b, n, dtype=dtype, device=dev, rules=rules)
+    batch = {"tokens": toks[:, :s], **(extra or {})}
+
+    def fresh():
+        return init_cache(cfg, b, max_seq or n, dtype=dtype, device=dev,
+                          rules=rules)
+
     on_card = dev.type == "cuda"
 
     def clock(fn):
@@ -87,12 +114,14 @@ def _run(cfg, params, toks, steps, dtype, dev, rules=None,
         return out, start.elapsed_time(end)
 
     if timed:
-        prefill(params, {"tokens": toks[:, :s]}, caches)     # warm-up
+        prefill(params, batch, fresh())                      # warm-up
         if on_card:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+    # fresh leaves: a prefill continues from the recurrent state it finds
+    caches = fresh()
     (logits, caches), prefill_ms = clock(
-        lambda: prefill(params, {"tokens": toks[:, :s]}, caches))
+        lambda: prefill(params, batch, caches))
     seen = [] if timed else [_whole(logits)]
     step_ms = []
     for i in range(steps):
@@ -106,13 +135,24 @@ def _run(cfg, params, toks, steps, dtype, dev, rules=None,
                 "decode_ms_median": statistics.median(step_ms),
                 "peak_GB": (torch.cuda.max_memory_allocated() / 1e9
                             if on_card else 0.0)}
-    return {"logits": seen, "caches": [_whole(t)
-                                       for t in tree_leaves(caches)]}
+    return {"logits": {f"stage {i}": t for i, t in enumerate(seen)},
+            "caches": {f"{kind}/{name}": _whole(t)
+                       for kind, leaves in caches.items()
+                       for name, t in leaves.items()}}
 
 
-def _max_err(got: list, want: list) -> float:
-    return max(float((a.float() - b.float()).abs().max())
-               for a, b in zip(got, want))
+def _checksum(t) -> float:
+    """The sum of ``t`` in f64, 2^26 elements at a time (no f64 copy of
+    the whole leaf)."""
+    import torch
+    return sum(float(c.sum(dtype=torch.float64))
+               for c in t.reshape(-1).split(1 << 26))
+
+
+def _errs(got: dict, want: dict) -> dict:
+    """Per entry: the largest |got - want| and the largest |want|."""
+    return {k: [float((got[k].float() - w.float()).abs().max()),
+                float(w.float().abs().max())] for k, w in want.items()}
 
 
 def rank_main(rank, args, port):
@@ -154,34 +194,51 @@ def rank_main(rank, args, port):
         if on_card:
             torch.cuda.empty_cache()
 
+    def inputs(cfg, batch, seq, step):
+        b = make_batch(cfg, batch, seq, step=step, seed=args.seed)
+        extra = ({"frames": torch.from_numpy(b["frames"]).to(dev)}
+                 if cfg.is_encdec else {})
+        return torch.from_numpy(b["tokens"]).to(dev), extra
+
+    def rules_of(mesh):
+        if args.long:
+            return make_rules(mesh, batch_divisible=False,
+                              seq_sharded_decode=True)
+        return make_rules(mesh)
+
     try:
         for arch in args.arch.split(","):
             base = (get_reduced if args.reduced else get_config)(arch)
-            cfg = dataclasses.replace(base, n_layers=args.layers or
+            layers = args.layers if args.layers is not None else CUT.get(
+                arch, 0)
+            cfg = dataclasses.replace(base, n_layers=layers or
                                       base.n_layers)
-            check = torch.from_numpy(make_batch(
-                cfg, CHECK_BATCH, CHECK_PROMPT + CHECK_STEPS,
-                seed=args.seed)["tokens"]).to(dev)
-            toks = torch.from_numpy(make_batch(
-                cfg, args.batch, args.prompt + args.steps, step=1,
-                seed=args.seed)["tokens"]).to(dev)
+            batch = 1 if args.long else args.batch
+            prompt = (min(args.prompt, TEXT_CONTEXT) if cfg.is_encdec
+                      else args.prompt)
+            check_prompt = (cfg.sliding_window + PAST_WINDOW
+                            if args.long and cfg.sliding_window
+                            else CHECK_PROMPT)
+            check, cextra = inputs(cfg, 1 if args.long else CHECK_BATCH,
+                                   check_prompt + CHECK_STEPS, 0)
+            toks, extra = inputs(cfg, batch, prompt + args.steps, 1)
+            kw = {"max_seq": args.max_seq} if args.long else {}
             params = init_params(cfg, args.seed, device=dev)
-            sums = report([float(t.double().sum()) for t in
-                           tree_leaves(params)])
+            sums = report([_checksum(t) for t in tree_leaves(params)])
             if any(s != sums[0] for s in sums):
                 raise RuntimeError(f"{arch}: the cards drew other weights")
             with mock.patch.object(lm, "COMPUTE_DTYPE", torch.float32):
                 want = _run(cfg, params, check, CHECK_STEPS, torch.float32,
-                            dev)
+                            dev, extra=cextra, **kw)
             base_t = _run(cfg, params, toks, args.steps, torch.bfloat16,
-                          dev, timed=True)
+                          dev, timed=True, extra=extra, **kw)
             del params
             free()
             for shape in args.meshes.split(","):
                 dims = tuple(int(x) for x in shape.split("x"))
                 mesh = init_device_mesh(dev.type, dims,
                                         mesh_dim_names=("data", "model"))
-                rules = make_rules(mesh)
+                rules = rules_of(mesh)
                 params = shard_params(init_params(cfg, args.seed,
                                                   device=dev), cfg, rules)
                 free()
@@ -189,14 +246,16 @@ def rank_main(rank, args, port):
                            for t in tree_leaves(params))
                 with mock.patch.object(lm, "COMPUTE_DTYPE", torch.float32):
                     got = _run(cfg, params, check, CHECK_STEPS,
-                               torch.float32, dev, rules)
-                err = {"logits": _max_err(got["logits"], want["logits"]),
-                       "caches": _max_err(got["caches"], want["caches"])}
+                               torch.float32, dev, rules, extra=cextra, **kw)
+                by = {what: _errs(got[what], want[what])
+                      for what in ("logits", "caches")}
+                err = {what: max(e for e, _ in v.values())
+                       for what, v in by.items()}
                 del got
                 free()
                 t = _run(cfg, params, toks, args.steps, torch.bfloat16, dev,
-                         rules, timed=True)
-                every = report({"err": err, "timed": t, "held_GB":
+                         rules, timed=True, extra=extra, **kw)
+                every = report({"err": err, "by": by, "timed": t, "held_GB":
                                 held / 1e9})
                 del params
                 free()
@@ -207,12 +266,18 @@ def rank_main(rank, args, port):
                     print(json.dumps({
                         "arch": cfg.name, "layers": cfg.n_layers,
                         "mesh": dict(rules.sizes), "cards": args.cards,
-                        "batch": args.batch, "prompt": args.prompt,
+                        "long_context": args.long,
+                        "max_seq": kw.get("max_seq"),
+                        "batch": batch, "prompt": prompt,
                         "decode_steps": args.steps,
                         "f32_check": {
-                            "batch": CHECK_BATCH, "prompt": CHECK_PROMPT,
+                            "batch": check.shape[0],
+                            "prompt": check.shape[1] - CHECK_STEPS,
                             "steps": CHECK_STEPS, "tol": F32_TOL,
                             "max_abs_err_by_rank": [r["err"] for r in every],
+                            # rank 0's [max |err|, max |reference|] by
+                            # stage and by cache leaf
+                            "rank0_err_and_largest": every[0]["by"],
                             "passed": passed},
                         "sharded": {
                             "prefill_ms_max": max(r["timed"]["prefill_ms"]
@@ -237,13 +302,19 @@ def main() -> int:
     ap.add_argument("--cards", type=int, default=4)
     ap.add_argument("--meshes", default="1x4,2x2,4x1")
     ap.add_argument("--arch", default="qwen3_moe_235b_a22b")
-    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="layers of each arch (0: all; default CUT's, "
+                    "else all)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--long", action="store_true",
+                    help="the batch-1 long-context layout")
+    ap.add_argument("--max-seq", type=int, default=524288,
+                    help="--long: cache slots")
     args = ap.parse_args()
     for shape in args.meshes.split(","):
         d, m = (int(x) for x in shape.split("x"))
