@@ -186,7 +186,23 @@ Phases (any failed check raises, so the script exits non-zero):
    caches allocated at 524,288 slots (danube's rings at its 4096-token
    window), a 2048-token prompt and 32 greedy steps in bf16, bit for bit,
    decode ms a step beside its byte bound;
-15. the kernels line, the card's name and power limit, and the last line:
+15. the tensor-parallel train step (``tp_train_phase``) on the same mesh
+   of one card, with the kernels' counters zeroed before and read after
+   (none launched): the per-device ``train_4k`` state bytes on (16, 16)
+   under the tensor-parallel rules for the six archs that train so
+   (paligemma-3b, gemma-7b, phi3-medium, jamba, dbrx, qwen3-moe), from
+   ``input_specs``; paligemma-3b whole (18 layers, every published width)
+   under ``make_rules(mesh)`` and its ``TRAIN_SETTINGS`` (accum 2, f32
+   params and moments), ``remat="full"``, phase 11's AdamW configuration,
+   8 x 2048 tokens a step (256 stub patch embeddings and 1792 text tokens
+   a row): 2 unsharded steps, their leaves kept on the host, then 2
+   sharded steps from the same seed, every param, ``mu`` and ``nu`` leaf,
+   the losses and gradient norms equal bit for bit (deterministic
+   algorithms on); then 3 steps of each timed with CUDA events, tokens/s,
+   peak memory and ``train_work``'s bound; the dry run of ``paligemma_3b``
+   x ``train_4k``: FLOPs a device and the tensor-parallel collective
+   bytes;
+16. the kernels line, the card's name and power limit, and the last line:
    ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.
@@ -301,6 +317,16 @@ LONG_MAX_SEQ = 524288        # the long_500k cell's caches, allocated whole,
 LONG_PROMPT = 2048           # filled by a prompt of 2048 (not 524,288), then
 LONG_BATCH = 1               # LM_DECODE greedy steps
 LONG_BYTES_ARCHS = ("jamba_v01_52b", "rwkv6_1p6b", "h2o_danube_1p8b")
+# phase 15: the tensor-parallel train step, paligemma-3b whole (18 layers,
+# every published width) on the same mesh of one card, TRAIN_SETTINGS
+TP_ARCH = "paligemma_3b"
+TP_BATCH = 8                 # 8 x 2048 a step: 256 stub patch embeddings
+TP_SEQ = 2048                # and 1792 text tokens a row
+TP_EQUAL_STEPS = 2           # unsharded, then sharded, from one seed: bit
+TP_TIMED = 3                 # for bit; then TP_TIMED timed steps of each
+                             # (3, not 5: the phase keeps near 150 s)
+TP_STATE_ARCHS = ("paligemma_3b", "gemma_7b", "phi3_medium_14b",
+                  "jamba_v01_52b", "dbrx_132b", "qwen3_moe_235b_a22b")
 # Tolerances of phase 11 (fixed before its first run on the card):
 TRAIN_LOSS_RTOL = 1e-5       # loss, card vs CPU (f32 compute)
 TRAIN_GRAD_TOL = 1e-4        # grad leaves, card vs CPU and accum 2 vs 1 (f32),
@@ -3185,7 +3211,191 @@ def families_serving_phase(dev, name: str, bw: float,
     return out
 
 
+def tp_train_phase(dev, name: str, bw: float) -> dict:
+    """Phase 15: the tensor-parallel train step on the NCCL process group
+    of one that phases 12-14 ran on.  (a) ``TP_ARCH`` whole under
+    ``make_rules(mesh)`` (the tensor-parallel rules, not ``dp_only``) and
+    its ``TRAIN_SETTINGS`` (accum 2, f32 params and moments), ``remat=
+    "full"``, phase 11's AdamW configuration, ``TP_BATCH`` x ``TP_SEQ``
+    tokens a step.  (b) ``TP_EQUAL_STEPS`` unsharded steps, their leaves
+    kept on the host, then as many sharded steps from the same seed: every
+    param, ``mu`` and ``nu`` leaf, the losses and the gradient norms equal
+    bit for bit (deterministic algorithms on).  (c) Those steps are the
+    warm-ups; then ``TP_TIMED`` steps of each, timed with CUDA events, with
+    tokens/s, peak memory and ``train_work``'s bound.  (d) The ``train_4k``
+    state bytes a device on (16, 16) under the tensor-parallel rules for
+    ``TP_STATE_ARCHS`` (from ``input_specs``), and the dry run's record of
+    ``TP_ARCH`` x ``train_4k``.  (e) The match kernels' counters are zeroed
+    before and read after (none launched).  Returns the phase's record."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import SHAPES, get_config, train_settings
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import make_production_mesh, mesh_for_devices
+    from repro_torch.launch.dryrun import run_cell, shard_bytes
+    from repro_torch.models import param_count
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.sharding import make_rules
+    from repro_torch.train import (build_train_step, init_train_state,
+                                   input_specs)
+
+    t_phase = time.perf_counter()
+    zero_counts()
+    out = {"state_bytes_per_device": {}}
+    # -- (d) per-device state of the train_4k cells, tensor-parallel -------
+    shape = SHAPES["train_4k"]
+    mesh = make_production_mesh()
+    for arch in TP_STATE_ARCHS:
+        st = train_settings(arch)
+        check(not st.get("dp_only"), f"{arch} trains under the "
+              "tensor-parallel rules")
+        rules = make_rules(mesh)
+        specs = input_specs(get_config(arch), shape, rules, st)
+        out["state_bytes_per_device"][arch] = sum(
+            shard_bytes(t, rules.sizes) for t in tree_leaves(specs["state"]))
+    log(json.dumps({"tp_state_bytes": out["state_bytes_per_device"]}))
+
+    # -- (a)-(c) the step on a mesh of one card ---------------------------------
+    cfg = get_config(TP_ARCH)
+    settings = train_settings(TP_ARCH)
+    accum = settings["accum"]
+    check(settings.get("param_dtype", "float32") == "float32"
+          and settings.get("mu_dtype", "float32") == "float32"
+          and settings.get("nu_dtype", "float32") == "float32",
+          f"{TP_ARCH} trains f32 params and moments")
+    opt = AdamWConfig(**TRAIN_OPT)
+    peaks = peak_flops(name)
+    rules = make_rules(mesh_for_devices(1))
+    check(not rules.table["_gather_tp"] and rules.table["act_heads"]
+          == "model", "the tensor-parallel rules, not dp_only")
+    pipe = TokenPipeline(cfg, TP_BATCH, TP_SEQ, seed=LM_SEED)
+    batches = [pipe.batch_at(i) for i in range(TP_EQUAL_STEPS + TP_TIMED)]
+    check(batches[0]["patches"].shape == (TP_BATCH, cfg.frontend_tokens,
+                                          cfg.d_model)
+          and batches[0]["tokens"].shape == (
+              TP_BATCH, TP_SEQ - cfg.frontend_tokens),
+          "a row holds the stub patch embeddings and the text tokens")
+    plain = build_train_step(cfg, opt, accum=accum, remat=TRAIN_REMAT)
+    step = build_train_step(cfg, opt, rules=rules, accum=accum,
+                            remat=TRAIN_REMAT)
+    log(f"tp train: {cfg.name} whole ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim} over "
+        f"{cfg.n_kv_heads} kv head, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}), accum {accum}, mesh {dict(rules.sizes)}")
+
+    def host_leaves(state):
+        """Each leaf of ``state`` whole on the host, one at a time."""
+        for t in tree_leaves(state):
+            yield (t.full_tensor() if isinstance(t, DTensor) else t).cpu()
+
+    def run(fn, held: dict, first: int, n: int):
+        """``n`` steps from ``held["state"]``, each step's state replacing
+        it there, so that no name keeps an earlier state (30 GB) alive."""
+        losses, norms, times = [], [], []
+        for i in range(first, first + n):
+            (held["state"], m), ms = event_ms(
+                lambda: fn(held["state"], batches[i]))
+            losses.append(m["loss"].clone())
+            norms.append(m["grad_norm"].clone())
+            times.append(ms)
+        return losses, norms, times
+
+    figures = {}
+    for which, fn in (("unsharded", plain), ("sharded", step)):
+        torch.cuda.reset_peak_memory_stats()
+        held = {}
+        held["state"], t_init = sync_time(lambda: init_train_state(
+            cfg, LM_SEED, opt_cfg=opt, device=dev,
+            rules=rules if which == "sharded" else None))
+        if which == "sharded":
+            check(all(isinstance(t, DTensor) for t in tree_leaves(
+                (held["state"].params, held["state"].opt.mu,
+                 held["state"].opt.nu))),
+                "the sharded state rests in DTensors")
+        n_params = param_count(held["state"].params)
+        # the embedding's backward adds with float atomics on the card:
+        # the equal steps use PyTorch's deterministic algorithms
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            losses, norms, eq_ms = run(fn, held, 0, TP_EQUAL_STEPS)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        eq_peak = torch.cuda.max_memory_allocated() / 1e9
+        if which == "unsharded":
+            want = list(host_leaves(held["state"]))
+            want_m = (losses, norms)
+        else:
+            same = [torch.equal(a, b)
+                    for a, b in zip(host_leaves(held["state"]), want)]
+            check(len(same) == len(want) and all(same),
+                  f"every param, mu and nu leaf after {TP_EQUAL_STEPS} "
+                  "tensor-parallel steps on the mesh of one equals the "
+                  "unsharded step's bit for bit")
+            check(all(torch.equal(a, b) for a, b in zip(losses, want_m[0]))
+                  and all(torch.equal(a, b)
+                          for a, b in zip(norms, want_m[1])),
+                  "the losses and gradient norms equal the unsharded "
+                  "step's bit for bit")
+            n_leaves = len(want)
+            del want
+        torch.cuda.reset_peak_memory_stats()
+        t_losses, _, times = run(fn, held, TP_EQUAL_STEPS, TP_TIMED)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        vals = [float(v) for v in t_losses]
+        check(all(math.isfinite(v) for v in vals),
+              f"every timed {which} loss is finite")
+        med = statistics.median(times)
+        figures[which] = {
+            "init_s": t_init, "equal_steps_ms": eq_ms,
+            "equal_losses": [float(v) for v in losses],
+            "step_ms": times, "step_ms_median": med,
+            "tokens_per_s": TP_BATCH * TP_SEQ / med * 1e3,
+            "losses": vals, "max_memory_allocated_GB": peak,
+            "max_memory_allocated_GB_equal_steps": eq_peak}
+        del held
+        gc.collect()
+        torch.cuda.empty_cache()
+    work = train_work(cfg, TP_BATCH, TP_SEQ, n_params, TRAIN_REMAT)
+    out["main"] = {
+        "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+        "state_GB": 12 * n_params / 1e9, "mesh": dict(rules.sizes),
+        "rules": "make_rules(mesh)", "accum": accum, "batch": TP_BATCH,
+        "seq": TP_SEQ, "remat": TRAIN_REMAT,
+        "equal": {"steps": TP_EQUAL_STEPS, "leaves": n_leaves,
+                  "losses": "bit for bit"},
+        **figures, "work": work,
+        "bound_ms_by": {w: lm_bound_ms(work[w], bw, peaks) for w in work}}
+    log(json.dumps({"tp_train": out["main"]}))
+
+    # -- (d) the dry run of the cell ------------------------------------------------
+    t0 = time.perf_counter()
+    rec = run_cell(TP_ARCH, "train_4k", multi_pod=False, save=False)
+    rec["run_s"] = time.perf_counter() - t0
+    # at least one (tokens, d_model) f32 sum over "model" a layer and
+    # microbatch (the MLP's, whose hidden dim 16 divides)
+    tokens = shape.global_batch // mesh.shape[0] // accum * shape.seq_len
+    check(rec["collectives"].get("all-reduce", 0)
+          >= accum * cfg.n_layers * tokens * cfg.d_model * 4,
+          "the dry run counts the all-reduces over 'model'")
+    log(json.dumps({"tp_dryrun": rec}))
+    out["dryrun"] = rec
+    counts = read_counts()
+    log(f"phase 15 launches: {counts}")
+    check(not any(counts.values()), "the tensor-parallel step launches no "
+          "match kernel")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
+    # the caching allocator grows its segments instead of keeping freed
+    # blocks of the sizes they had: phase 15's 30 GB update of paligemma
+    # otherwise finds 18 GB of the card reserved in pieces too small
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -3403,7 +3613,8 @@ def main() -> int:
 
     # -- 12. sharding: the data-parallel step on a mesh of one, the dry run;
     # -- 13. sharded serving on the same NCCL process group of one;
-    # -- 14. every family sharded there, the long-context layout too -------
+    # -- 14. every family sharded there, the long-context layout too;
+    # -- 15. the tensor-parallel train step there, paligemma-3b whole ------
     import tempfile
 
     import torch.distributed as dist
@@ -3423,10 +3634,13 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
             families_serving_phase(dev, name, bw, families)
+            gc.collect()
+            torch.cuda.empty_cache()
+            tp_train_phase(dev, name, bw)
         finally:
             dist.destroy_process_group()
 
-    # -- 15. result --------------------------------------------------------------
+    # -- 16. result --------------------------------------------------------------
     log(smi)
     log(json.dumps({"kernels": [bitplane, packed, banked]}))
     log(json.dumps({"ok": True, "device": {

@@ -14,9 +14,15 @@ and records per cell, in the JAX package's record (its ``run_cell``):
                   global shapes on fake tensors (``FakeTensorMode``, which
                   allocates nothing) under ``FlopCounterMode``, divided by
                   the devices that share the work under the specs;
-  * collectives — per-device bytes by collective type, from the
-                  placements of the data-parallel step
-                  (``train.build_train_step(..., rules=)``);
+  * collectives — per-device bytes by collective type of the sharded
+                  step (``train.build_train_step(..., rules=)``): from
+                  the placements of the data-parallel scheme (serving,
+                  ``dp_only`` and multi-pod train cells), and for the
+                  single-pod train cells under the tensor-parallel rules
+                  from the step's own collectives, counted by running one
+                  microbatch of it on fake tensors at one rank's shapes
+                  with a ``Shards`` that records each collective instead
+                  of running it (``shards_collectives``);
 
 into ``artifacts/dryrun_torch/<arch>__<shape>__<tag>.json``.  Figures that
 only a compiler gives (temporaries, bytes accessed, code size, compile
@@ -41,12 +47,14 @@ from ..configs import ARCHS, SHAPES, get_config, shape_cells, train_settings
 from ..optim import AdamWConfig
 from ..pytree import tree_leaves
 from ..sharding import make_rules, mesh_sizes
+from ..sharding.collectives import Shards
 from ..train import (build_decode_step, build_prefill_step, build_train_step,
                      input_specs)
 from ..train.step import batch_axes
 from .mesh import make_production_mesh
 
-__all__ = ["run_cell", "main", "shard_bytes", "collective_bytes", "ART_DIR"]
+__all__ = ["run_cell", "main", "shard_bytes", "collective_bytes",
+           "shards_collectives", "ART_DIR"]
 
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "artifacts", "dryrun_torch")
@@ -65,13 +73,28 @@ DERIVED = {
              "product of the mesh axes of act_batch (the global batch's "
              "spec), of act_heads/act_mlp/act_experts and act_seq, and "
              "(decode) of cache_seq",
-    "collectives": "bytes each device receives per collective: "
-                   "all-gather of every sharded param leaf at use (its "
-                   "whole bytes); train also reduces each gradient over "
-                   "the batch's mesh axes in mesh order (reduce-scatter "
-                   "where the leaf is sharded on the axis, else "
-                   "all-reduce) and all-reduces the loss, token count and "
-                   "squared norm (4 bytes each)",
+    "collectives": "bytes per device and collective type: an "
+                   "all-gather counts its output, a reduce-scatter its "
+                   "output shard, an all-reduce its tensor.  Serving and "
+                   "dp_only train cells: the all-gather of every sharded "
+                   "param leaf at use (its whole bytes); train also "
+                   "reduces each gradient over the batch's mesh axes in "
+                   "mesh order (reduce-scatter where the leaf is sharded "
+                   "on the axis, else all-reduce) and all-reduces the "
+                   "loss, token count and squared norm (4 bytes each).  "
+                   "Single-pod train cells under the tensor-parallel "
+                   "rules (the multi-pod mesh trains no tensor-parallel "
+                   "step yet and keeps the data-parallel count): one "
+                   "microbatch of the rank's rows through loss_fn and its "
+                   "backward on FakeTensorMode tensors at rank 0's local "
+                   "shapes, every collective of sharding.collectives "
+                   "recorded (the per-layer gathers over 'data' at use, "
+                   "again in remat's recompute, and their reduce-scatters; "
+                   "the all-reduces over 'model' of each sum forward and "
+                   "each enter backward; the router logits' gathers), "
+                   "times accum; plus the all-reduce over 'data' of each "
+                   "gradient replicated there (f32) and the loss, token "
+                   "count and squared norm (4 bytes each)",
     "null": "temp_bytes, bytes_accessed, code_bytes, t_lower_s and "
             "t_compile_s need a compiler's analysis, which eager PyTorch "
             "does not have",
@@ -118,6 +141,129 @@ def collective_bytes(specs: dict, rules, shape, settings: dict) -> dict:
                 else:
                     out["all-reduce"] += local
         out["all-reduce"] += 4 * (2 + (accum == 1))  # loss, norm, tokens
+    return {k: v for k, v in out.items() if v}
+
+
+class _Counting(Shards):
+    """A ``Shards`` over a device-free mesh that runs no collective: each
+    records its bytes by type (``bytes``) and returns a tensor of its
+    result's shape, as rank 0 sees it.  ``data_dims`` gives each param
+    leaf's dim over "data" (by ``id``), which ``at_use`` gathers."""
+
+    def __init__(self, rules, batch: int, data_dims: dict):
+        super().__init__(rules, batch, own_groups=True)
+        self.data_dims = data_dims
+        self.bytes = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
+
+    def rank(self, axis):
+        return 0
+
+    def _group(self, axis):
+        return axis
+
+    def _groups(self, axis):
+        return [a for a in (axis if isinstance(axis, tuple) else (axis,))
+                if self.size(a) > 1]
+
+    def _all_reduce(self, t, op, groups):
+        self.bytes["all-reduce"] += len(groups) * _nbytes(t)
+        return t.clone()
+
+    def _all_gather(self, t, group, n, dim):
+        out = torch.cat([t] * n, dim=dim)
+        self.bytes["all-gather"] += _nbytes(out)
+        return out
+
+    def _reduce_scatter(self, t, group, n, dim):
+        out = t.narrow(dim, 0, t.shape[dim] // n).clone()
+        self.bytes["reduce-scatter"] += _nbytes(out)
+        return out
+
+    def at_use(self, leaf, idx=None):
+        local = leaf if idx is None else leaf[idx]
+        dim = self.data_dims[id(leaf)]
+        if dim is None or self.size("data") == 1:
+            return local
+        return self.gather_param(local, dim - (idx is not None))
+
+
+def _nbytes(t) -> int:
+    return math.prod(t.shape) * t.element_size()
+
+
+def shards_collectives(cfg, rules, shape, settings: dict) -> dict:
+    """Per-device bytes by collective type that ``sharding.collectives``
+    moves in one tensor-parallel train step: one microbatch of a data
+    rank's rows through ``loss_fn`` and its backward on ``FakeTensorMode``
+    tensors at rank 0's local shapes, with a ``Shards`` that records each
+    collective instead of running it, times ``accum``.  Every repeat of
+    ``cfg.pattern`` moves the same bytes (its leaves' shapes are the same),
+    so the step runs at one and two repeats and the difference is counted
+    ``n_repeat - 1`` times more; also ``replicated_over_data``, the
+    elements of the leaves that rest whole over "data"."""
+    import dataclasses
+    period = len(cfg.pattern)
+    one, two = (_microbatch_bytes(dataclasses.replace(cfg, n_layers=k *
+                                                      period),
+                                  rules, shape, settings)
+                for k in (1, 2))
+    accum = settings.get("accum", 1)
+    out = {k: accum * (one[k] + (cfg.n_repeat - 1) * (two[k] - one[k]))
+           for k in one}
+    specs = input_specs(cfg, shape, rules, settings)
+    out["replicated_over_data"] = sum(
+        math.prod(t.shape) for t in tree_leaves(specs["state"].params)
+        if not any("data" in (a if isinstance(a, tuple) else (a,))
+                   for a in t.spec))
+    return out
+
+
+def _microbatch_bytes(cfg, rules, shape, settings: dict) -> dict:
+    """What ``shards_collectives`` records for one microbatch of ``cfg``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..models import loss_fn
+    from ..pytree import tree_map
+    specs = input_specs(cfg, shape, rules, settings)
+    accum = settings.get("accum", 1)
+    shards = math.prod(rules.sizes[a]
+                       for a in batch_axes(rules, shape.global_batch))
+    rows = shape.global_batch // shards // accum
+    data_dims = {}
+
+    def local(t):
+        """Rank 0's shard of ``t`` (a stand-in with its spec), requiring
+        a gradient; its dim over "data" noted for ``at_use``."""
+        spec = tuple(t.spec) + (None,) * (len(t.shape) - len(t.spec))
+        out = torch.empty(rules.local_shape(t.shape, spec), dtype=t.dtype,
+                          device="cpu").requires_grad_()
+        data_dims[id(out)] = next(
+            (i for i, a in enumerate(spec)
+             if "data" in (a if isinstance(a, tuple) else (a,))), None)
+        return out
+
+    with FakeTensorMode():
+        params = tree_map(local, specs["state"].params)
+        batch = tree_map(lambda t: torch.empty(
+            (rows,) + tuple(t.shape[1:]), dtype=t.dtype, device="cpu"),
+            specs["batch"])
+        counting = _Counting(rules, shape.global_batch, data_dims)
+        loss, _ = loss_fn(params, cfg, batch,
+                          remat=settings.get("remat", "full"),
+                          shards=counting)
+        torch.autograd.grad(loss, tree_leaves(params), allow_unused=True)
+    return counting.bytes
+
+
+def _tp_collectives(cfg, rules, shape, settings: dict) -> dict:
+    """Per-device bytes by collective type of the tensor-parallel train
+    step (``DERIVED["collectives"]``)."""
+    out = shards_collectives(cfg, rules, shape, settings)
+    n = out.pop("replicated_over_data")
+    if any(rules.sizes[a] > 1 for a in batch_axes(rules,
+                                                   shape.global_batch)):
+        out["all-reduce"] += 4 * n   # their f32 gradients over "data"
+    out["all-reduce"] += 4 * (2 + (settings.get("accum", 1) == 1))
     return {k: v for k, v in out.items() if v}
 
 
@@ -217,7 +363,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
             "flops": flops / work,
             "bytes_accessed": None,
         },
-        "collectives": collective_bytes(specs, rules, shape, settings),
+        "collectives": (_tp_collectives(cfg, rules, shape, settings)
+                        if shape.step == "train" and not multi_pod
+                        and not rules.table["_gather_tp"]
+                        else collective_bytes(specs, rules, shape, settings)),
         "settings": settings,
         "t_lower_s": None,
         "t_compile_s": None,

@@ -25,25 +25,30 @@ stacked caches in place (``copy_`` into the views) and return the same dict.
 
 The model code carries no sharding annotations: the JAX package's
 ``shard`` calls only constrain layouts for its compiler.  Across devices
-the train step (``train.build_train_step(..., rules=)``) gathers the whole
-param tree before calling ``loss_fn`` (the JAX package's FSDP
-gather-at-use, ``_gather_fsdp``, done once per step instead of per layer)
-and reduce-scatters the gradients itself.  Sharded serving
-(``prefill``/``decode_step`` with ``shards=``, a
-``sharding.collectives.Shards``) runs one rank's part of the step on its
-rows of the batch, its param shards (``models.params.shard_params``) and
-its cache shards (``init_cache(..., rules=)``), with the collectives
-explicit: each layer's weights gathered over "data" at use, the
-vocab-parallel embedding and head, the query heads (and their kv heads)
-of this rank with the output projection's partial sums all-reduced over
-"model" (``Shards.dot``: in f32, rounded once), decode over a cache whose
+the data-parallel train step (``train.build_train_step(..., rules=)``
+under ``dp_only`` rules) gathers the whole param tree before calling
+``loss_fn`` and reduce-scatters the gradients itself.  The sharded train
+step (``loss_fn`` with ``shards=``) and sharded serving (``prefill``/
+``decode_step`` with ``shards=``), a ``sharding.collectives.Shards``, run
+one rank's part of the step on its rows of the batch, its param shards
+(``models.params.shard_params``) and its cache shards (``init_cache(...,
+rules=)``), with the collectives explicit and each with its backward:
+each layer's weights gathered over "data" at use (their gradients
+reduce-scattered back), the vocab-parallel embedding, head and
+cross-entropy, the query heads (and their kv heads) of this rank with the
+output projection's partial sums all-reduced over "model"
+(``Shards.dot``: in f32, rounded once), decode over a cache whose
 ``head_dim`` is split by all-reducing the partial query-key scores, or
 over a cache split by ring slots (the batch-1 long-context layout) by
 combining the softmax over the ranks, the MLP's ``mlp`` columns and the
 MoE's experts (``moe.moe_ffn``), mamba's inner dim, rwkv6's heads and
 channel-mix hidden dim and whisper's cross-attention heads split over
-"model".  Without ``shards`` the path is the unsharded one, and on a mesh
-of one the sharded path runs the same operations on the same tensors.
+"model".  Each stretch of rank-local work starts at ``Shards.enter`` on
+the replicated tensors it reads, weights that rest whole on every rank of
+"model" (heads' and inner dims' projections, the head norms) included,
+and ends at a sum over "model", so every gradient comes back whole.
+Without ``shards`` the path is the unsharded one, and on a mesh of one the
+sharded path runs the same operations on the same tensors.
 ``jax.checkpoint`` maps to ``torch.utils.checkpoint`` (``layers.checkpointed``)
 at the same places: a repeat of ``cfg.pattern`` under ``remat``, each loss
 chunk, each attention query chunk, each MoE token group, each mamba and
@@ -90,6 +95,12 @@ def _w(shards: Shards | None, a, idx: int | None = None):
     if shards is None:
         return a if idx is None else a[idx]
     return shards.at_use(a, idx)
+
+
+# the weights of the heads, whole on every rank of "model" (the rules map
+# no "qkv" dim there): a rank that runs some heads enters them
+_ATTN_WEIGHTS = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
+_CROSS_WEIGHTS = ("xwq", "xwk", "xwv", "xwo")
 
 
 def _span(w: torch.Tensor, dim: int, lo: int, n: int, size: int):
@@ -185,7 +196,11 @@ def _attention_mixer(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
     split_hd = ctx.mode == "decode" and hdc < hd
     if split_hd or (split_seq and ctx.mode == "decode"):
         q0, nq = 0, nh          # every head, on this rank's columns or slots
+    # this rank's heads (or head_dim columns) give a partial sum over "model"
+    partial = split_hd or nq < nh
     x = _norm(h, p["norm1"], cfg)
+    if partial:
+        x, p = sh.enter(x), sh.enter_all(p, _ATTN_WEIGHTS)
     q = (x @ _span(p["wq"], 1, q0, nq, hd).to(dt)).reshape(b, s, nq, hd)
     k = (x @ _span(p["wk"], 1, k0, nk, hd).to(dt)).reshape(b, s, nk, hd)
     v = (x @ _span(p["wv"], 1, k0, nk, hd).to(dt)).reshape(b, s, nk, hd)
@@ -239,7 +254,7 @@ def _attention_mixer(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
     else:
         wo = _span(wo, 0, q0, nq, hd)
     o = o.reshape(b, s, -1)
-    if wo.shape[0] < nh * hd:        # a partial sum of this rank's heads
+    if partial:                      # a partial sum of this rank's heads
         return h + sh.dot(o, wo.to(dt))
     return h + o @ wo.to(dt)
 
@@ -255,13 +270,16 @@ def _cross_mixer(h, p, cfg: ModelConfig, ctx: Ctx, cache):
     sh = ctx.shards
     q0, nq = (0, nh) if sh is None else sh.local("act_heads", nh)
     x = _norm(h, p["norm_x"], cfg)
+    enc = ctx.enc_out
+    if nq < nh:
+        x, p = sh.enter(x), sh.enter_all(p, _CROSS_WEIGHTS)
+        enc = None if enc is None else sh.enter(enc)
     q = (x @ _span(p["xwq"], 1, q0, nq, hd).to(dt)).reshape(b, s, nq, hd)
     if ctx.mode == "decode":
         xk, xv = cache["xk"], cache["xv"]
         sp = torch.arange(xk.shape[1], dtype=torch.int32, device=h.device)
         o = decode_attention(q, xk, xv, sp, 2**30)
     else:
-        enc = ctx.enc_out
         xk = (enc @ _span(p["xwk"], 1, q0, nq, hd).to(dt)).reshape(
             b, enc.shape[1], nq, hd)
         xv = (enc @ _span(p["xwv"], 1, q0, nq, hd).to(dt)).reshape(
@@ -315,6 +333,8 @@ def _apply_block(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
     if ffn == "mlp":
         # sharded over "mlp", w_down's products are partial sums
         split = p["w_down"].shape[0] < cfg.d_ff
+        if split:
+            x = ctx.shards.enter(x)
         h = h + mlp(x, p, cfg.mlp_act,
                     dot=ctx.shards.dot if split else None)
     elif ffn == "moe":
@@ -435,15 +455,16 @@ def _start(params, cfg: ModelConfig, tokens, frontend, frames,
 
 
 def _hidden(params, cfg: ModelConfig, tokens, frontend, frames,
-            remat: str = "none"):
-    """The final-normed hidden states (B, S, D) of the full sequence."""
-    enc_out, h = _start(params, cfg, tokens, frontend, frames, remat)
+            remat: str = "none", shards: Shards | None = None):
+    """The final-normed hidden states (B, S, D) of the full sequence; with
+    ``shards``, of this rank's rows."""
+    enc_out, h = _start(params, cfg, tokens, frontend, frames, remat, shards)
     s = h.shape[1]
     sin, cos = _rope_tables(cfg, torch.arange(s, device=h.device))
     ctx = Ctx(mode="full", sin=sin, cos=cos, prefix_len=cfg.frontend_tokens,
-              enc_out=enc_out)
+              enc_out=enc_out, shards=shards)
     h = _run_blocks(cfg, params["blocks"], None, h, ctx, remat=remat)
-    return _norm(h, params["final_norm"], cfg)
+    return _norm(h, _w(shards, params["final_norm"]), cfg)
 
 
 def _head(params, cfg: ModelConfig, shards: Shards | None = None):
@@ -460,31 +481,54 @@ def forward(params, cfg: ModelConfig, tokens, *, frontend=None, frames=None):
                                         frames))
 
 
-def _chunk_loss(hc, lc, w):
-    """Summed next-token cross-entropy of one chunk, and its label count."""
+def _chunk_loss(hc, lc, w, shards: Shards | None = None):
+    """Summed next-token cross-entropy of one chunk, and its label count.
+    With ``shards`` (``w`` this rank's vocab columns), the vocab-parallel
+    form (Megatron's): the max over "model" (no gradient), the sum of the
+    exponentials over "model", and the gold logit from the rank whose
+    columns hold the label, summed over "model"."""
     logits = (hc @ w.to(hc.dtype)).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, lc.clamp_min(0)[..., None])[..., 0]
     valid = lc >= 0
+    n = logits.shape[-1]
+    if shards is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lc.clamp_min(0)[..., None])[..., 0]
+    else:
+        m = shards.max(logits.amax(dim=-1), "model")
+        lse = torch.log(shards.sum(torch.exp(logits - m[..., None]).sum(-1),
+                                   "model")) + m
+        local = lc - shards.rank("model") * n
+        inside = (local >= 0) & (local < n)
+        gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+        gold = shards.sum(torch.where(inside, gold, 0.0), "model")
     return ((lse - gold) * valid).sum(), valid.sum(dtype=torch.int32)
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, remat: str = "dots",
-            loss_chunk: int = 1024):
+            loss_chunk: int = 1024, shards: Shards | None = None):
     """Next-token CE with seq-chunked logits (peak memory ~ B x chunk x V);
     labels of -1 (and a multimodal prefix's positions) carry no loss.
     Records the graph for a backward pass; each chunk's logits are
     recomputed there.  ``batch`` holds ``tokens`` and ``labels`` (B, S_text)
     and, per configuration, ``patches`` or ``frames``.  Returns
-    (loss, {"loss", "tokens"})."""
+    (loss, {"loss", "tokens"}).  With ``shards``, one rank's part of the
+    sharded train step: ``batch`` is this rank's rows, ``params`` its
+    ``DTensor`` shards, the collectives explicit (each with its backward),
+    and the head's vocab columns split over "model" (the vocab-parallel
+    cross-entropy); the loss is its rows', the same on every rank of
+    "model"."""
     h = _hidden(params, cfg, batch["tokens"], batch.get("patches"),
-                batch.get("frames"), remat)
+                batch.get("frames"), remat, shards)
     labels = torch.as_tensor(batch["labels"], device=h.device).long()
     if cfg.frontend_tokens:
         # frontend positions carry no next-token loss
         pad = labels.new_full((labels.shape[0], cfg.frontend_tokens), -1)
         labels = torch.cat([pad, labels], dim=1)
-    w = _head(params, cfg)
+    w = _head(params, cfg, shards)
+    if shards is not None and w.shape[1] < cfg.vocab_size:
+        h = shards.enter(h)            # into this rank's vocab columns
+    else:
+        shards = None
     s = h.shape[1]
     chunk = min(loss_chunk, s)
     if s % chunk:
@@ -494,7 +538,7 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: str = "dots",
     cnt = torch.zeros((), dtype=torch.int32, device=h.device)
     for c0 in range(0, s, chunk):
         loss, n = checkpointed(_chunk_loss, h[:, c0:c0 + chunk],
-                               labels[:, c0:c0 + chunk], w)
+                               labels[:, c0:c0 + chunk], w, shards)
         tot, cnt = tot + loss, cnt + n
     loss = tot / torch.clamp_min(cnt, 1)
     return loss, {"loss": loss, "tokens": cnt}

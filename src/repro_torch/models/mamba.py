@@ -18,7 +18,10 @@ Sharded over "model" (``act_dinner``), a rank runs its columns
 columns of ``dt_w``; ``x_proj`` contracts over the inner dim, so the
 (dt, B, C) projection is all-reduced in f32 before it is split, and
 ``out_proj``'s rows give a partial sum over "model".  Its conv and SSM
-state are its columns' (the caches' ``act_dinner`` shards).
+state are its columns' (the caches' ``act_dinner`` shards).  The mixer's
+weights rest whole on every rank of "model", so under a gradient they
+and ``x`` enter the rank's part through ``Shards.enter``, and so does the
+summed (dt, B, C) projection, which feeds the rank's columns again.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ from .layers import checkpointed
 __all__ = ["mamba_mixer", "mamba_decode", "init_mamba_state", "CHUNK"]
 
 CHUNK = 256
+_WEIGHTS = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_w", "dt_b", "A_log",
+            "Dskip", "out_proj")
 
 
 def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -130,15 +135,17 @@ def mamba_mixer(
     dt = x.dtype
     di = p["conv_w"].shape[0]
     d0, nd = (0, di) if shards is None else shards.local("act_dinner", di)
-    p = _local(p, d0, nd)
     split = nd < di
+    if split:                        # into this rank's inner-dim columns
+        x, p = shards.enter(x), shards.enter_all(p, _WEIGHTS)
+    p = _local(p, d0, nd)
     xz = x @ p["in_proj"].to(dt)
     xin, z = xz.chunk(2, dim=-1)                            # (B,S,Di) each
     conv_prev = state[0] if state is not None else None
     h0 = state[1] if state is not None else None
     xc = F.silu(_conv_causal(xin, p["conv_w"], p["conv_b"], conv_prev))
     y, h = _ssm(xc, p, cfg, h0, xdb_sum=(
-        (lambda t: shards.sum(t, "model")) if split else None))
+        (lambda t: shards.enter(shards.sum(t, "model"))) if split else None))
     y = y * F.silu(z)
     w = p["out_proj"].to(dt)
     # sharded, a partial sum of this rank's columns

@@ -97,17 +97,22 @@ def moe_ffn(
     shards=None,                  # sharded serving: this rank's part
 ) -> torch.Tensor:
     """The MoE layer.  With ``shards`` (``sharding.collectives.Shards``),
-    ``x`` is this rank's rows of the batch and ``p`` its shards: the token
-    groups and their capacity are the global batch's, as the reference's
-    (GSPMD keeps global semantics).  Where the groups split evenly over the
-    batch's "data" ranks a rank runs its own groups; otherwise its tokens
-    share groups with other ranks, and the expert choices of every token
-    are gathered over "data" so that each dispatch is ranked in the global
-    order.  Experts split over "model" run only this rank's experts; the
-    combined outputs are then partial sums, added over "model"."""
+    ``x`` is this rank's rows of the batch and ``p`` its shards.  Serving,
+    the token groups and their capacity are the global batch's, as the
+    reference's (GSPMD keeps global semantics): where the groups split
+    evenly over the batch's "data" ranks a rank runs its own groups;
+    otherwise its tokens share groups with other ranks, and the expert
+    choices of every token are gathered over "data" (integers: no
+    gradient) so that each dispatch is ranked in the global order.  In the
+    train step (``shards.own_groups``) a rank's rows are its microbatch and
+    form their own groups.  Experts split over "model" run only this
+    rank's experts, on ``x`` entered into its part (``Shards.enter``), as
+    the router's logits of its experts' columns are; the combined outputs
+    are then partial sums, added over "model"."""
     b, s, d = x.shape
     t = b * s
-    n_shards = 1 if shards is None else shards.batch_shards
+    n_shards = (1 if shards is None or shards.own_groups
+                else shards.batch_shards)
     tg = t * n_shards                                       # global tokens
     g = cfg.moe_groups if tg % cfg.moe_groups == 0 else 1  # decode: t=B
     dt = x.dtype
@@ -117,6 +122,9 @@ def moe_ffn(
     # as the reference's per-group cast does.
     w = (None if torch.is_grad_enabled() else
          {n: p[n].to(dt) for n in _EXPERT_WEIGHTS})
+    split = p["w_gate"].shape[0] < cfg.n_experts   # this rank's experts only
+    if split:
+        x = shards.enter(x)          # into the router's and experts' columns
     if g % n_shards:
         y = _moe_spanning(x.reshape(t, d), p, cfg, router_bits, w, shards, g)
     else:
@@ -128,7 +136,7 @@ def moe_ffn(
         y = torch.stack([checkpointed(_moe_group, xg[i], p, cfg, router_bits,
                                       w, shards, remat=remat)
                          for i in range(g)])
-    if p["w_gate"].shape[0] < cfg.n_experts:     # this rank's experts only
+    if split:
         y = shards.sum(y, "model")
     return y.reshape(b, s, d)
 
@@ -137,6 +145,14 @@ def _local_experts(p: dict, cfg: ModelConfig, shards) -> tuple[int, int]:
     """(first, count) of the experts whose weights ``p`` holds."""
     n = p["w_gate"].shape[0]
     return (0, n) if n == cfg.n_experts else (shards.rank("model") * n, n)
+
+
+def _gates_in(top_w, ne: int, cfg: ModelConfig, shards):
+    """The gates as the input of this rank's experts' combine: where the
+    experts split over "model", each rank's gradient of the gates is its
+    experts' part, summed over "model" (``Shards.enter``), so the router's
+    softmax and the gather of its logits see the whole gradient."""
+    return shards.enter(top_w) if ne < cfg.n_experts else top_w
 
 
 def _moe_group(
@@ -156,6 +172,7 @@ def _moe_group(
     flat_e = top_i.reshape(-1)                              # (T*k,)
     pos = _positions_in_expert(flat_e, e)
     e0, ne = _local_experts(p, cfg, shards)
+    top_w = _gates_in(top_w, ne, cfg, shards)
     return _experts(xt, top_w, flat_e, pos, c, 1, e0, ne, w, cfg)
 
 
@@ -182,6 +199,7 @@ def _moe_spanning(xt, p, cfg, router_bits, w, shards, g) -> torch.Tensor:
     pos = pos[first * k:(first + t) * k]
     local_group = (group[first:first + t] - g0).repeat_interleave(k)
     e0, ne = _local_experts(p, cfg, shards)
+    top_w = _gates_in(top_w, ne, cfg, shards)
     return _experts(xt, top_w, top_i.reshape(-1), pos, capacity(cfg, per),
                     g1 - g0 + 1, e0, ne, w, cfg, local_group)
 

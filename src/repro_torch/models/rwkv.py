@@ -23,8 +23,12 @@ low-rank decay's output (and of ``w_base``), its rows of ``u`` and of the
 per-head group norm; ``wo``'s rows give a partial sum over "model".  The
 WKV state cache is whole on every rank, so the rank reads its heads' part
 and all-gathers the new state over "model".  The token shift and the
-mixes run alike on every rank.  The channel mix's ``cm_k``/``cm_v`` are
-split over ``mlp``, so its value product is a partial sum over "model".
+mixes run alike on every rank.  The time mix's weights rest whole on every
+rank of "model", so under a gradient they and ``x`` enter the rank's part
+through ``Shards.enter`` (training keeps no WKV state to gather).  The
+channel mix's ``cm_k``/``cm_v`` are split over ``mlp``, so its value
+product is a partial sum over "model"; its key input enters the rank's
+part, while its receptance (``cm_r``) runs alike on every rank.
 """
 from __future__ import annotations
 
@@ -44,6 +48,8 @@ __all__ = ["rwkv_mixer", "rwkv_decode", "rwkv_channel_mix",
 # over a 16-token chunk, so e^{±L} is representable in f32.
 CHUNK = 16
 CLIP = 44.0
+_WEIGHTS = ("mu", "w_base", "w_lora_a", "w_lora_b", "wr", "wk", "wv", "wg",
+            "u", "ln_x", "wo")
 
 
 def _clip(x, lo, hi):
@@ -128,6 +134,8 @@ def rwkv_mixer(
     b, s, d = x.shape
     hs, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
     h0, h = (0, hs) if shards is None else shards.local("act_heads", hs)
+    if h < hs:                       # into this rank's heads
+        x, p = shards.enter(x), shards.enter_all(p, _WEIGHTS)
     p = _local(p, h0, h, hd)
     x_prev = state[0] if state is not None else x.new_zeros((b, d))
     s_st = (state[1][:, h0:h0 + h] if state is not None else
@@ -177,10 +185,13 @@ def rwkv_channel_mix(
     mu = p["cm_mu"].to(dt)
     xk = x + mu[0] * (shifted - x)
     xr = x + mu[1] * (shifted - x)
-    kk = torch.square(torch.relu(xk @ p["cm_k"].to(dt)))
     w = p["cm_v"].to(dt)
+    split = w.shape[0] < cfg.d_ff
+    if split:                        # into this rank's hidden columns
+        xk = shards.enter(xk)
+    kk = torch.square(torch.relu(xk @ p["cm_k"].to(dt)))
     # split over "mlp", a partial sum of this rank's rows
-    vv = shards.dot(kk, w) if w.shape[0] < cfg.d_ff else kk @ w
+    vv = shards.dot(kk, w) if split else kk @ w
     rr = torch.sigmoid(xr @ p["cm_r"].to(dt))
     out = rr * vv
     if return_state:

@@ -80,9 +80,24 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def adamw_update(grads, state: OptState, params, cfg: AdamWConfig):
+def _release(tree) -> None:
+    """Every leaf of a dict tree replaced by ``None``."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _release(v)
+        else:
+            tree[k] = None
+
+
+def adamw_update(grads, state: OptState, params, cfg: AdamWConfig, *,
+                 donate_grads: bool = False):
     """Returns (new_params, new_state, metrics {"grad_norm", "lr"}); the
-    inputs are left as they were."""
+    inputs are left as they were.  With ``donate_grads`` the caller gives
+    up ``grads``: its leaves are taken out of the tree (replaced by
+    ``None``) and each is freed once its leaf is updated, so the
+    gradients do not all live beside the old and the new state.  A leaf's
+    temporaries are updated in place, with the reference's operations in
+    its order, so at most a few leaf-sized temporaries live at once."""
     gnorm = global_norm(grads)
     scale = torch.clamp_max(
         _f32(cfg.clip_norm, gnorm) / torch.clamp_min(gnorm, 1e-9), 1.0)
@@ -94,18 +109,32 @@ def adamw_update(grads, state: OptState, params, cfg: AdamWConfig):
 
     def upd(p, g, m, v):
         g = g.float() * scale
-        mf = cfg.b1 * m.float() + (1 - cfg.b1) * g
-        vf = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
-        mhat = mf / b1c
-        vhat = vf / b2c
+        mf = cfg.b1 * m.float()
+        mf.add_((1 - cfg.b1) * g)                 # b1 m + (1 - b1) g
+        vf = cfg.b2 * v.float()
+        gg = (1 - cfg.b2) * g
+        vf.add_(gg.mul_(g))                       # b2 v + (1 - b2) g g
+        del g, gg
+        u = mf / b1c                              # mhat
+        den = vf / b2c                            # vhat
+        u.div_(den.sqrt_().add_(cfg.eps))         # mhat / (sqrt + eps)
+        del den
         pf = p.float()
-        pf = pf - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                        + cfg.weight_decay * pf)
-        return pf.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
+        u.add_(cfg.weight_decay * pf).mul_(lr)    # lr * (... + wd p)
+        return (pf - u).to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
 
-    trip = [upd(*xs) for xs in zip(tree_leaves(params), tree_leaves(grads),
-                                   tree_leaves(state.mu),
-                                   tree_leaves(state.nu))]
+    g_leaves = tree_leaves(grads)
+    if donate_grads:
+        _release(grads)
+    trip = []
+    for i, (p, m, v) in enumerate(zip(tree_leaves(params),
+                                      tree_leaves(state.mu),
+                                      tree_leaves(state.nu))):
+        g = g_leaves[i]
+        if donate_grads:
+            g_leaves[i] = None
+        trip.append(upd(p, g, m, v))
+        del g
     new_p, new_mu, new_nu = (
         tree_unflatten(tree, [t[i] for t in trip])
         for i, tree in enumerate((params, state.mu, state.nu)))

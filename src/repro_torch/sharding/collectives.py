@@ -1,21 +1,36 @@
-"""Explicit collectives over one axis of a ("data", "model") ``DeviceMesh``,
-on local tensors: what sharded serving runs where the JAX package leaves
-the communication to GSPMD.
+"""Explicit collectives over the axes of a ("data", "model")
+``DeviceMesh``, on local tensors, each with its backward: what the sharded
+train step and sharded serving run where the JAX package leaves the
+communication to GSPMD.
 
-A ``Shards`` is one rank's part of a sharded prefill or decode step: the
-rules, the global batch, this rank's rows of it, and
+A ``Shards`` is one rank's part of a sharded step: the rules, the global
+batch, this rank's rows of it, and
 
 - ``at_use``: a param leaf (or slice ``idx`` of a stacked one) as a layer
   uses it, its ``embed`` (FSDP) dim all-gathered over "data" and its
   tensor-parallel dims (``vocab``, ``mlp``, ``experts``) left local; the
   JAX package's gather-at-use (``_gather_fsdp``), done inside the layer
-  loop so that one layer's gathered weights live at a time;
+  loop so that one layer's gathered weights live at a time.  Its backward
+  reduce-scatters the gradient over "data" (sum), so a layer's weight
+  gradient lands as this rank's shard; where the batch does not split
+  over "data" every data rank runs the same rows, holds the whole
+  gradient, and keeps its own slice of it;
 - ``local``: the range of an activation dim (``act_heads``,
   ``act_kv_heads``, ``act_dinner``) that this rank computes, or of the
   ring slots (``cache_seq``, split over ("data", "model") in the batch-1
   long-context layout) that it holds;
-- ``sum`` and ``max``: all-reduce (``sum`` in f32) over one mesh axis or
-  a tuple of them; ``gather``: all-gather over one axis;
+- ``sum`` (all-reduce in f32 forward, the gradient passed unchanged
+  backward) and ``enter`` (the identity forward, the gradient summed over
+  "model" backward): Megatron's *g* and *f*.  ``sum`` ends a stretch of
+  rank-local work whose result every rank then uses alike (an output
+  projection's partial sums); ``enter`` starts one, on every replicated
+  tensor at the point where it feeds rank-local work (an activation, or a
+  weight that rests whole on every rank but that a rank uses only in part,
+  such as its heads' columns of ``wq``), so that its gradient, a partial
+  sum on each rank, comes back whole;
+- ``gather``: all-gather over one axis forward, this rank's own slice of
+  the gradient backward (the MoE router's logits);
+- ``max``: all-reduce max, without a gradient (its input detached);
 - ``dot``: a product whose contraction is split over "model" (an output
   projection's rows), each rank's part accumulated in f32 and summed
   unrounded, so the sum is rounded to the compute dtype once, as the
@@ -24,11 +39,16 @@ rules, the global batch, this rank's rows of it, and
 
 Every collective over an axis of size 1 returns its input itself and every
 range over one is the whole dim, so on a mesh of one the sharded path runs
-the unsharded path's operations on the same tensors.  The collectives are
-``torch.distributed``'s functional ones, on the mesh's sub-groups
-(``Rules.group``): the
-in-place cache writes and the MoE scatter stay plain tensor ops on local
-tensors (no ``DTensor`` sharding propagation through the model).
+the unsharded path's operations on the same tensors.  Each pair is a
+``torch.autograd.Function`` over ``torch.distributed``'s functional
+collectives on the mesh's sub-groups (``Rules.group``), with its backward
+written out: the backward that PyTorch registers for the functional
+collectives treats an all-reduce's replicated output as if each rank's
+gradient were a part of the whole, which makes every tensor-parallel
+gradient "model"-size times too large.  Without a gradient being recorded
+``enter`` is a plain return.  The in-place cache writes and the MoE
+scatter stay plain tensor ops on local tensors (no ``DTensor`` sharding
+propagation through the model).
 """
 from __future__ import annotations
 
@@ -48,18 +68,126 @@ def _wait(t: torch.Tensor) -> torch.Tensor:
     return t.wait() if hasattr(t, "wait") else t
 
 
+def _all_reduce(t: torch.Tensor, op: str, groups: list) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+    for group in groups:
+        t = _wait(funcol.all_reduce(t, op, group))
+    return t
+
+
+def _gather_dim(t: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """The ranks' ``t`` concatenated on ``dim`` in their order on the
+    group: gathered on dim 0, where every version's functional all-gather
+    stacks the ranks, then moved to ``dim`` here."""
+    import torch.distributed._functional_collectives as funcol
+    out = _wait(funcol.all_gather_tensor(t.contiguous(), 0, group))
+    return out if dim == 0 else torch.cat(out.chunk(n, dim=0), dim=dim)
+
+
+def _scatter_dim(t: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """The sum over the group of ``t``, this rank's slice of it on
+    ``dim``."""
+    import torch.distributed._functional_collectives as funcol
+    out = _wait(funcol.reduce_scatter_tensor(t.movedim(dim, 0).contiguous(),
+                                             "sum", 0, group))
+    return out.movedim(0, dim)
+
+
+# Each pair runs its collectives through the ``Shards`` it is given
+# (``comm``), which the dry run replaces by one that counts their bytes.
+class _Reduce(torch.autograd.Function):
+    """Sum over ``groups`` forward; backward the gradient passes unchanged,
+    since every rank's addend gets the whole sum's gradient (Megatron's
+    *g*)."""
+
+    @staticmethod
+    def forward(ctx, t, comm, groups):
+        return comm._all_reduce(t, "sum", groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """The identity forward; backward the gradient summed over ``groups``
+    in f32 (Megatron's *f*): each rank's gradient of a replicated tensor
+    that fed its rank-local work is its part of the whole."""
+
+    @staticmethod
+    def forward(ctx, t, comm, groups):
+        ctx.comm, ctx.groups = comm, groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = ctx.comm._all_reduce(g.float(), "sum", ctx.groups)
+        return out.to(g.dtype), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather of an activation on ``dim`` forward; backward this rank's
+    own slice of the gradient, which every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx, t, comm, group, n, rank, dim):
+        ctx.slice = (dim, rank * t.shape[dim], t.shape[dim])
+        return comm._all_gather(t, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(*ctx.slice), None, None, None, None, None
+
+
+class _GatherParam(torch.autograd.Function):
+    """A param shard all-gathered on ``dim`` forward (FSDP at use);
+    backward the gradient reduce-scattered (summed in f32) back to the
+    shard, each rank's gradient being its rows' part of the whole."""
+
+    @staticmethod
+    def forward(ctx, t, comm, group, n, dim):
+        ctx.args = (comm, group, n, dim)
+        return comm._all_gather(t, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, group, n, dim = ctx.args
+        out = comm._reduce_scatter(g.float(), group, n, dim)
+        return out.to(g.dtype), None, None, None, None
+
+
+class _ProductF32(torch.autograd.Function):
+    """``x @ w`` of low-precision operands, accumulated in f32 and not
+    rounded; its gradients are those of the product in ``x``'s dtype
+    (``torch.mm(..., out_dtype=)`` has no derivative of its own)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda:
+            out = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                           out_dtype=torch.float32)
+            return out.reshape(*x.shape[:-1], w.shape[-1])
+        return x.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return g @ w.T, gw
+
+
 def product_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` accumulated in f32 and not rounded to ``x``'s dtype.  A
     product of two bf16 values is exact in f32, so on the CPU the f32
     copies' product is what the bf16 GEMM accumulates; on the card
-    ``torch.mm(..., out_dtype=)`` keeps the bf16 tensor cores."""
+    ``torch.mm(..., out_dtype=)`` keeps the bf16 tensor cores.  Under a
+    gradient, ``x`` and ``w`` get the gradients of the product in their
+    dtype, on either device."""
     if x.dtype == torch.float32:
         return x @ w
-    if x.is_cuda:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                       out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], w.shape[-1])
-    return x.float() @ w.float()
+    return _ProductF32.apply(x, w)
 
 
 def as_dtensor(local: torch.Tensor, rules: Rules, logical, shape):
@@ -76,22 +204,26 @@ def as_dtensor(local: torch.Tensor, rules: Rules, logical, shape):
 
 
 class Shards:
-    """One rank's part of a sharded serving call over ``rules.mesh`` (a
-    ``DeviceMesh`` of axes "data" and "model") for a global batch of
-    ``batch`` rows."""
+    """One rank's part of a sharded train, prefill or decode step over
+    ``rules.mesh`` (a ``DeviceMesh`` of axes "data" and "model") for a
+    global batch of ``batch`` rows.  ``own_groups``: each rank's rows form
+    their own MoE token groups (the train step, whose data ranks each run
+    their rows' microbatches); otherwise the groups are the global
+    batch's (serving)."""
 
-    def __init__(self, rules: Rules, batch: int):
+    def __init__(self, rules: Rules, batch: int, *, own_groups: bool = False):
         names = tuple(rules.mesh.mesh_dim_names)
         if names != AXES:
-            raise ValueError(f"sharded serving runs over a mesh of axes "
+            raise ValueError(f"the sharded step runs over a mesh of axes "
                              f"{AXES}, not {names}")
         self.rules = rules
         self.mesh = rules.mesh
         self.batch = batch
+        self.own_groups = own_groups
         spec = rules.spec(("act_batch",), (batch,))
         axis = spec[0] if spec else None
         if isinstance(axis, tuple) or axis not in (None, "data"):
-            raise ValueError(f"act_batch over {axis!r}: sharded serving "
+            raise ValueError(f"act_batch over {axis!r}: the sharded step "
                              "splits the batch over 'data' only")
         self.batch_shards = self.size(axis) if axis else 1
         self.batch_index = self.rank(axis) if axis else 0
@@ -126,6 +258,18 @@ class Shards:
         return self.index(axis) * k, k
 
     # -- collectives --------------------------------------------------------------
+    def _group(self, axis: str):
+        return self.rules.group(axis)
+
+    def _all_reduce(self, t, op: str, groups: list) -> torch.Tensor:
+        return _all_reduce(t, op, groups)
+
+    def _all_gather(self, t, group, n: int, dim: int) -> torch.Tensor:
+        return _gather_dim(t, group, n, dim)
+
+    def _reduce_scatter(self, t, group, n: int, dim: int) -> torch.Tensor:
+        return _scatter_dim(t, group, n, dim)
+
     def _groups(self, axis) -> list:
         """The process groups one reduction over ``axis`` (a mesh axis or a
         tuple of them) runs on, one after another: none for axes of size
@@ -136,26 +280,39 @@ class Shards:
             import torch.distributed as dist
             if self.mesh.size() == dist.get_world_size():
                 return [dist.group.WORLD]
-        return [self.rules.group(a) for a in live]
-
-    def _all_reduce(self, t: torch.Tensor, op: str, axis) -> torch.Tensor:
-        import torch.distributed._functional_collectives as funcol
-        for group in self._groups(axis):
-            t = _wait(funcol.all_reduce(t, op, group))
-        return t
+        return [self._group(a) for a in live]
 
     def sum(self, t: torch.Tensor, axis) -> torch.Tensor:
         """The sum of ``t`` over the ranks along ``axis`` (a mesh axis or a
-        tuple of them), added in f32 and returned in ``t``'s dtype."""
-        if not self._groups(axis):
+        tuple of them), added in f32 and returned in ``t``'s dtype; its
+        gradient passes to every rank's ``t`` unchanged."""
+        groups = self._groups(axis)
+        if not groups:
             return t
-        return self._all_reduce(t.float(), "sum", axis).to(t.dtype)
+        return _Reduce.apply(t.float(), self, groups).to(t.dtype)
+
+    def enter(self, t: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """``t``, a tensor every rank along ``axis`` holds alike, as the
+        input of this rank's part of the work: the identity, whose gradient
+        is summed over ``axis``."""
+        groups = self._groups(axis)
+        if not groups or not (torch.is_grad_enabled() and t.requires_grad):
+            return t
+        return _Enter.apply(t, self, groups)
+
+    def enter_all(self, p: dict, names) -> dict:
+        """``p`` with its weights ``names`` (those it holds) entered: the
+        weights that rest whole on every rank of "model" but that a rank
+        uses only in part."""
+        return dict(p, **{n: self.enter(p[n]) for n in names if n in p})
 
     def max(self, t: torch.Tensor, axis) -> torch.Tensor:
-        """The elementwise max of ``t`` over the ranks along ``axis``."""
-        if not self._groups(axis):
-            return t
-        return self._all_reduce(t, "max", axis)
+        """The elementwise max of ``t`` over the ranks along ``axis``, with
+        no gradient."""
+        groups = self._groups(axis)
+        if not groups:
+            return t.detach()
+        return self._all_reduce(t.detach(), "max", groups)
 
     def dot(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``x @ w`` where this rank holds a part of the contraction
@@ -167,21 +324,19 @@ class Shards:
 
     def gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """The ranks' ``t`` along ``axis`` concatenated on ``dim``, in the
-        ranks' order on the axis: gathered on dim 0, where every version's
-        functional all-gather stacks the ranks, then moved to ``dim`` here."""
+        ranks' order on the axis; the gradient of the result, which every
+        rank holds whole, gives each rank its own slice."""
         n = self.size(axis)
         if n == 1:
             return t
-        import torch.distributed._functional_collectives as funcol
-        out = _wait(funcol.all_gather_tensor(t.contiguous(), 0,
-                                             self.rules.group(axis)))
-        return out if dim == 0 else torch.cat(out.chunk(n, dim=0), dim=dim)
+        return _Gather.apply(t, self, self._group(axis), n, self.rank(axis),
+                             dim)
 
     # -- params at use ----------------------------------------------------------
     def at_use(self, leaf, idx: Optional[int] = None) -> torch.Tensor:
         """Param ``leaf`` (slice ``idx`` of its leading "layers" dim) as a
         layer uses it: a ``DTensor``'s local shard with its dim over "data"
-        gathered; a plain tensor as it is."""
+        gathered (``gather_param``); a plain tensor as it is."""
         from torch.distributed.tensor import DTensor, Shard
         if not isinstance(leaf, DTensor):
             return leaf if idx is None else leaf[idx]
@@ -189,10 +344,23 @@ class Shards:
         if idx is not None:
             local = local[idx]
         place = leaf.placements[AXES.index("data")]
-        if isinstance(place, Shard):
-            local = self.gather(local, "data",
-                                place.dim - (0 if idx is None else 1))
+        n = self.size("data")
+        if isinstance(place, Shard) and n > 1:
+            local = self.gather_param(local, place.dim - (0 if idx is None
+                                                          else 1))
         return local
+
+    def gather_param(self, local: torch.Tensor, dim: int) -> torch.Tensor:
+        """A param shard gathered over "data" on ``dim``.  Its gradient is
+        reduce-scattered back where the data ranks took other rows; where
+        the batch does not split over "data" each rank computed the whole
+        gradient from the same rows, and keeps its own slice (a sum would
+        count it once a rank)."""
+        group, n = self._group("data"), self.size("data")
+        if self.batch_shards == 1:
+            return _Gather.apply(local, self, group, n, self.rank("data"),
+                                 dim)
+        return _GatherParam.apply(local, self, group, n, dim)
 
     def lookup(self, table: torch.Tensor, tokens: torch.Tensor
                ) -> torch.Tensor:

@@ -11,13 +11,21 @@ sees one half-updated.
 ``input_specs`` gives meta-device tensors (shapes and dtypes, no memory),
 each with its spec (``Rules.spec``) as the attribute ``spec``, for every
 input of a cell: what the reference's ``ShapeDtypeStruct``s with their
-shardings are.  ``build_train_step(..., rules=)`` over a ``DeviceMesh`` is
-the data-parallel (ZeRO) step that GSPMD makes of the reference's step:
-the state rests as ``DTensor`` shards (``shard_state``), each rank takes its
-rows of the global batch, gathers the whole param tree once, runs
-``accumulate_grads`` on its rows, reduce-scatters the gradients to the
-params' placements and updates its shard, with the gradient norm and the
-int8 scales reduced over every rank.  ``build_prefill_step`` and
+shardings are.  ``build_train_step(..., rules=)`` over a ("data",
+"model") ``DeviceMesh`` shards the step as GSPMD shards the reference's
+(but for its microbatches: each data rank's rows are its own;
+``build_train_step``): the state rests as ``DTensor`` shards
+(``shard_state``) and each rank takes its rows of the global batch.
+Under ``dp_only`` rules it is
+data-parallel (ZeRO): a rank gathers the whole param tree once, runs
+``accumulate_grads`` on its rows and reduce-scatters the gradients to the
+params' placements.  Under the tensor-parallel rules (``make_rules(mesh)``)
+a rank runs ``loss_fn`` with ``shards`` on its param shards: each layer's
+weights gathered over "data" at use, heads, MLP, experts, mamba's inner
+dim and the vocab split over "model", the collectives explicit with their
+backwards (``sharding.collectives``), so that each gradient arrives as the
+rank's shard.  Either way the update runs on the shards, with the gradient
+norm and the int8 scales reduced over every rank.  ``build_prefill_step`` and
 ``build_decode_step`` with ``rules`` over a ("data", "model")
 ``DeviceMesh`` serve sharded: each rank runs its rows of the global batch
 on its param and cache shards, the tensor- and expert-parallel
@@ -44,6 +52,7 @@ __all__ = [
     "TrainState", "init_train_state", "build_train_step",
     "build_prefill_step", "build_decode_step", "accumulate_grads",
     "state_shardings", "input_specs", "cache_logical_axes", "shard_state",
+    "sharded_grads",
 ]
 
 
@@ -171,20 +180,14 @@ def input_specs(cfg: ModelConfig, shape, rules: Rules,
 
 
 # ---------------------------------------------------------------------------
-# the data-parallel (ZeRO) state and step over a DeviceMesh
+# the sharded state and steps over a DeviceMesh
 # ---------------------------------------------------------------------------
 def _device_mesh(rules: Rules):
-    """``rules.mesh`` as a ``DeviceMesh`` the step can run on; raises where
-    the mesh needs what the step cannot do."""
+    """``rules.mesh`` as a ``DeviceMesh`` the step can run on."""
     mesh = rules.mesh
     if not hasattr(mesh, "get_local_rank"):
         raise TypeError("the sharded step runs over a DeviceMesh "
                         "(launch.mesh_for_devices), not a mesh shape")
-    if rules.sizes.get("model", 1) > 1:
-        raise ValueError(
-            f"mesh {rules.sizes}: a 'model' axis larger than 1 needs "
-            "tensor-parallel compute (heads, MLP and experts split over "
-            "ranks), which this data-parallel step does not do")
     return mesh
 
 
@@ -228,15 +231,22 @@ def _batch_shard(rules: Rules, mesh, n: int) -> tuple:
     return idx * m, (idx + 1) * m, axes, shards
 
 
-def _value_and_grad(cfg: ModelConfig, params, batch, remat: str):
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local shard; a plain tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _value_and_grad(cfg: ModelConfig, params, batch, remat: str,
+                    shards=None):
     """loss_fn's (loss, metrics) and its gradient for every param leaf (zeros
-    for a leaf the loss does not use), all detached."""
+    for a leaf the loss does not use), all detached; with ``shards``, each
+    ``DTensor`` leaf's gradient as its local shard."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, metrics = loss_fn(tree_unflatten(params, leaves), cfg, batch,
-                                remat=remat)
+                                remat=remat, shards=shards)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [_local(torch.zeros_like(p) if g is None else g)
              for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_unflatten(params, grads))
@@ -244,31 +254,40 @@ def _value_and_grad(cfg: ModelConfig, params, batch, remat: str):
 
 def accumulate_grads(cfg: ModelConfig, params, batch, *, accum: int = 1,
                      remat: str = "full",
-                     accum_dtype: torch.dtype = torch.float32):
+                     accum_dtype: torch.dtype = torch.float32, shards=None):
     """The step's gradient and metrics: one pass over ``batch``, or with
     ``accum > 1`` its ``accum`` microbatches (split on the batch axis) in
     turn, the gradients summed in ``accum_dtype`` and averaged, as the
     reference's scanned accumulation.  Returns (grads, metrics): ``loss``,
-    and ``tokens`` with ``accum == 1`` only, as there."""
+    and ``tokens`` with ``accum == 1`` only, as there.  With ``shards``
+    (``sharding.collectives.Shards``), one rank's part of the sharded
+    step: ``batch`` is its rows, ``params`` its ``DTensor`` shards, and each
+    gradient its local shard (summed over "data" where the leaf is
+    gathered over "data" at use)."""
     if accum == 1:
-        loss, metrics, grads = _value_and_grad(cfg, params, batch, remat)
+        loss, metrics, grads = _value_and_grad(cfg, params, batch, remat,
+                                               shards)
         return grads, metrics
     n = next(iter(batch.values())).shape[0]
     if n % accum:
         raise ValueError(f"batch {n} does not split into {accum} "
                          "microbatches")
     m = n // accum
-    g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
+    g_acc = tree_map(lambda p: torch.zeros(_local(p).shape,
+                                           dtype=accum_dtype,
                                            device=p.device), params)
     l_acc = torch.zeros((), dtype=torch.float32,
                         device=tree_leaves(params)[0].device)
     for i in range(accum):
         mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-        loss, _, g = _value_and_grad(cfg, params, mb, remat)
-        g_acc = tree_map(lambda a, b: a + b.to(a.dtype), g_acc, g)
+        loss, _, g = _value_and_grad(cfg, params, mb, remat, shards)
+        # in place: the sums (and the quotients below) are the same, and
+        # no second copy of the gradients lives beside the first
+        tree_map(lambda a, b: a.add_(b.to(a.dtype)), g_acc, g)
+        del g
         l_acc = l_acc + loss
-    grads = tree_map(lambda g: g / torch.tensor(accum, dtype=g.dtype,
-                                                device=g.device), g_acc)
+    grads = tree_map(lambda g: g.div_(torch.tensor(accum, dtype=g.dtype,
+                                                   device=g.device)), g_acc)
     return grads, {"loss": l_acc / torch.tensor(accum, dtype=torch.float32,
                                                 device=l_acc.device)}
 
@@ -291,18 +310,44 @@ def build_train_step(
     holds their summed gradients.  Metrics (0-d tensors on the device):
     ``loss``, ``tokens`` (accum 1 only), ``grad_norm`` and ``lr``.
 
-    With ``rules`` over a ``DeviceMesh`` the step is data-parallel: it takes
-    a state of ``DTensor`` shards (``init_train_state(..., rules=)``) and the
-    global batch, the same on every rank.  Each rank runs its rows of the
-    batch (``act_batch``'s spec) with ``accum`` microbatches on the whole
-    gathered param tree; the gradients are summed over the ranks into each
-    param's shards (a reduce-scatter) and divided by the number of batch
-    shards, the loss averaged and ``tokens`` summed over them.  AdamW and
-    the compression run on the shards, their gradient norm and int8 scales
-    reduced over every rank (``DTensor``'s reductions), and the per-leaf
-    arithmetic is the unsharded step's, so a mesh of one gives its result
-    bit for bit.  A mesh whose "model" axis is larger than 1 raises
-    ``ValueError``."""
+    With ``rules`` over a ("data", "model") ``DeviceMesh`` the step is
+    sharded: it takes a state of ``DTensor`` shards laid out by the rules
+    (``init_train_state(..., rules=)``) and the global batch, the same on
+    every rank.  Each rank runs its rows of the batch (``act_batch``'s
+    spec) as its own ``accum`` microbatches, its MoE token groups its
+    rows', so a mesh with D data shards computes what the unsharded step
+    computes with ``D * accum`` microbatches (the reference's GSPMD step
+    keeps ``accum`` microbatches of the global batch: the two differ where
+    a token group would span data ranks or rows carry different label
+    counts).  Where the batch does not split over "data", every data rank
+    runs all of it as ``accum`` microbatches.
+
+    - ``dp_only`` rules: data-parallel.  A rank gathers the whole param
+      tree once and runs ``accumulate_grads`` on it; the gradients are
+      summed over the ranks into each param's shards (a reduce-scatter).
+    - the tensor-parallel rules (``make_rules(mesh)``): a rank runs
+      ``loss_fn`` with ``shards`` (``sharding.collectives.Shards``) on its
+      param shards.  Inside the layer loop each layer's weights are
+      gathered over "data" at use, their "model" shards left local; heads
+      (attention, whisper's cross-attention, rwkv6's time mix), the MLP's
+      and channel mix's hidden dim, the experts, mamba's inner dim and the
+      vocab are split over "model" where "model" divides them, with the
+      tensor- and expert-parallel collectives explicit and each with its
+      backward.  A weight gathered over "data" gets its gradient
+      reduce-scattered back over "data"; a weight that rests replicated
+      over "model" and feeds rank-local work has its gradient summed over
+      "model" there (``Shards.enter``), and one used alike on every rank
+      (norm scales) holds the whole gradient already, so no leaf is summed
+      over "model" again.  A leaf replicated over "data" has its gradient
+      all-reduced over "data" after the microbatches.
+
+    Then the gradients are divided by the number of batch shards, the loss
+    averaged and ``tokens`` summed over them (the loss is the same on every
+    rank of "model").  AdamW and the compression run on the shards, their
+    gradient norm and int8 scales global over every rank (``DTensor``'s
+    reductions: a leaf replicated over an axis counts once), and the
+    per-leaf arithmetic is the unsharded step's, so a mesh of one gives
+    its result bit for bit."""
 
     def train_step(state: TrainState, batch):
         dev = state.opt.step.device
@@ -314,14 +359,30 @@ def build_train_step(
         if compress:
             grads, ef = ef_compress(grads, ef)
         params, opt, m2 = adamw_update(grads, state.opt, state.params,
-                                       opt_cfg)
+                                       opt_cfg, donate_grads=True)
         return TrainState(params=params, opt=opt, ef=ef), dict(metrics, **m2)
 
     if rules is None:
         return train_step
     mesh = _device_mesh(rules)
 
-    def sharded_step(state: TrainState, batch):
+    def update(state: TrainState, grads, metrics):
+        """The compression and AdamW on the shards, from ``grads``
+        (``DTensor``s at the params' placements)."""
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+        with use_rules(rules), implicit_replication():
+            ef = state.ef
+            if compress:
+                grads, ef = ef_compress(grads, ef)
+            params, opt, m2 = adamw_update(grads, state.opt, state.params,
+                                           opt_cfg, donate_grads=True)
+        m2 = {name: v.to_local() if isinstance(v, DTensor) else v
+              for name, v in m2.items()}
+        return TrainState(params=params, opt=opt, ef=ef), dict(metrics, **m2)
+
+    def dp_step(state: TrainState, batch):
         from torch.distributed.tensor import DTensor, Partial, Replicate
         from torch.distributed.tensor.experimental import (
             implicit_replication)
@@ -354,16 +415,65 @@ def build_train_step(
                              / k.to(g.dtype), grads, state.params)
             metrics = {name: summed(v) / k if name == "loss" else summed(v)
                        for name, v in metrics.items()}
-            ef = state.ef
-            if compress:
-                grads, ef = ef_compress(grads, ef)
-            params, opt, m2 = adamw_update(grads, state.opt, state.params,
-                                           opt_cfg)
-        m2 = {name: v.to_local() if isinstance(v, DTensor) else v
-              for name, v in m2.items()}
-        return TrainState(params=params, opt=opt, ef=ef), dict(metrics, **m2)
+        return update(state, grads, metrics)
 
-    return sharded_step
+    def tp_step(state: TrainState, batch):
+        dev = state.opt.step.device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        grads, metrics = sharded_grads(cfg, state.params, batch, rules,
+                                       accum=accum, remat=remat,
+                                       accum_dtype=accum_dtype)
+        return update(state, grads, metrics)
+
+    return dp_step if rules.table.get("_gather_tp") else tp_step
+
+
+def sharded_grads(cfg: ModelConfig, params, batch, rules: Rules, *,
+                  accum: int = 1, remat: str = "full",
+                  accum_dtype: torch.dtype = torch.float32):
+    """The tensor-parallel step's gradient and metrics on this rank:
+    ``params`` its ``DTensor`` shards under ``rules`` (not ``dp_only``),
+    ``batch`` the global batch.  The rank runs its rows (``act_batch``
+    over "data") as ``accum`` microbatches through ``loss_fn`` with
+    ``shards`` (``sharding.collectives.Shards``, its own MoE token groups);
+    each gradient comes back as its shard (a leaf gathered over "data" at
+    use summed over "data" by the gather's backward, a leaf replicated over
+    "data" all-reduced over it here) and is divided by the number of batch
+    shards.  Returns (grads, ``DTensor``s at the params' placements;
+    metrics, the loss averaged and ``tokens`` summed over the batch
+    shards)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from ..sharding.collectives import Shards, _all_reduce
+    mesh = _device_mesh(rules)
+    _check_shards(params, param_logical_axes(cfg), rules, "params")
+    n = next(iter(batch.values())).shape[0]
+    shards = Shards(rules, n, own_groups=True)
+    lo, hi = shards.rows
+    rows = {k: v[lo:hi] for k, v in batch.items()}
+    grads, metrics = accumulate_grads(cfg, params, rows, accum=accum,
+                                      remat=remat, accum_dtype=accum_dtype,
+                                      shards=shards)
+    k = shards.batch_shards
+    groups = [rules.group("data")] if k > 1 else []
+    kt = torch.tensor(k, dtype=torch.float32,
+                      device=tree_leaves(grads)[0].device)
+
+    def whole(g, p):
+        if groups:
+            # a leaf gathered over "data" at use had its gradient summed
+            # there by the gather's backward
+            if not isinstance(p.placements[0], Shard):
+                g = _all_reduce(g.float(), "sum", groups).to(g.dtype)
+            g = g / kt.to(g.dtype)
+        return DTensor.from_local(g, mesh, p.placements, run_check=False,
+                                  shape=p.shape, stride=p.stride())
+
+    grads = tree_map(whole, grads, params)
+    metrics = {name: _all_reduce(v, "sum", groups) for name, v in
+               metrics.items()}
+    metrics["loss"] = metrics["loss"] / kt
+    return grads, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -1192,6 +1192,74 @@ def test_mesh_of_one_on_card_equals_unsharded_step(cuda, tmp_path):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["paligemma_3b", "qwen3_moe_235b_a22b"])
+def test_tp_step_on_a_mesh_of_one_card_equals_unsharded_step(cuda, tmp_path,
+                                                             arch):
+    """The tensor-parallel step (``make_rules(mesh)``, not ``dp_only``) on
+    a mesh of one card equals the unsharded step bit for bit over two
+    steps of 2 microbatches, for the reduced config (paligemma: one kv
+    head, tied embeddings, a patch prefix; qwen3-moe: experts and their
+    token groups), under PyTorch's deterministic algorithms; the gradient
+    of ``sharded_grads`` equals ``accumulate_grads``' bit for bit; the
+    state rests in ``DTensor``s."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import mesh_for_devices
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.sharding import make_rules
+    from repro_torch.train import (accumulate_grads, build_train_step,
+                                   init_train_state, sharded_grads)
+    cfg = get_reduced(arch)
+    opt = AdamWConfig(warmup_steps=2, total_steps=10)
+    pipe = TokenPipeline(cfg, 4, 64, seed=0)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        rules = make_rules(mesh_for_devices(1))
+        assert not rules.table["_gather_tp"]
+        out = []
+        for r in (None, rules):
+            state = init_train_state(cfg, 0, opt_cfg=opt, device=cuda,
+                                     rules=r)
+            batch = {k: torch.from_numpy(v).to(cuda)
+                     for k, v in pipe.batch_at(0).items()}
+            if r is None:
+                grads, _ = accumulate_grads(cfg, state.params, batch,
+                                            accum=2)
+                grads = tree_leaves(grads)
+            else:
+                grads, _ = sharded_grads(cfg, state.params, batch, r,
+                                         accum=2)
+                grads = [g.full_tensor() for g in tree_leaves(grads)]
+            step = build_train_step(cfg, opt, rules=r, accum=2)
+            metrics = []
+            for i in range(2):
+                state, m = step(state, pipe.batch_at(i))
+                metrics.append(m)
+            out.append(([t.full_tensor() if isinstance(t, DTensor) else t
+                         for t in tree_leaves(state)], metrics, grads))
+        assert isinstance(state.params["embed"], DTensor)
+        (want, wm, wg), (got, gm, gg) = out
+        assert all(torch.equal(a, b) for a, b in zip(gg, wg))
+        assert all(set(a) == set(b) and all(torch.equal(a[k], b[k])
+                                            for k in b)
+                   for a, b in zip(gm, wm))
+        assert len(got) == len(want)
+        assert all(a.is_cuda and torch.equal(a, b)
+                   for a, b in zip(got, want))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
 def test_sharded_serving_on_a_mesh_of_one_equals_unsharded(cuda, tmp_path):
     """Reduced qwen3-moe served through ``build_prefill_step``/
     ``build_decode_step`` under the serving rules on a mesh of one card
@@ -1345,3 +1413,22 @@ def test_product_f32_on_card(cuda):
     assert torch.allclose(got.double(), want, rtol=1e-5, atol=1e-4)
     assert torch.equal(product_f32(x.float(), w.float()),
                        x.float() @ w.float())
+
+
+@pytest.mark.gpu
+def test_product_f32_gradient_on_card(cuda):
+    """Under a gradient ``product_f32`` of bf16 operands on the card (the
+    tensor-parallel step's split output projections) gives ``x`` and ``w``
+    the bf16 product's gradients bit for bit: ``torch.mm(...,
+    out_dtype=)`` has no derivative of its own."""
+    from repro_torch.sharding.collectives import product_f32
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((3, 40, 256), generator=gen, device=cuda).bfloat16()
+    w = torch.randn((256, 96), generator=gen, device=cuda).bfloat16()
+    g = torch.randn((3, 40, 96), generator=gen, device=cuda).bfloat16()
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    product_f32(xa, wa).backward(g.float())
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (xb @ wb).backward(g)
+    assert xa.grad.dtype == torch.bfloat16 and wa.grad.dtype == torch.bfloat16
+    assert torch.equal(xa.grad, xb.grad) and torch.equal(wa.grad, wb.grad)

@@ -31,8 +31,11 @@ What is held, and how closely (fixed before the first run):
   above (on the mesh of one, bit for bit).
 - a mesh of one equals ``rules=None`` bit for bit over two steps, and one
   compressed step.
-- a mesh whose "model" axis is 2 makes ``build_train_step`` raise
-  ``ValueError``; ``shard`` redistributes a ``DTensor`` to its spec.
+- on a mesh whose "model" axis is 2 the state rests in "model" shards:
+  each param, ``mu`` and ``nu`` leaf has the local shape and placements
+  of its spec (``w_gate``'s ``mlp`` columns and the embedding's vocab rows
+  halved), and a step keeps them so; ``shard`` redistributes a
+  ``DTensor`` to its spec.
 """
 import os
 
@@ -43,6 +46,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager, restore_resharded
 from repro_torch.configs import get_reduced
 from repro_torch.data import TokenPipeline
+from repro_torch.models import param_logical_axes
 from repro_torch.optim import AdamWConfig
 from repro_torch.pytree import tree_leaves, tree_unflatten
 from repro_torch.train import build_train_step, init_train_state
@@ -129,13 +133,23 @@ def two_ranks(rank, world, out, ckpt1):
         full = shard(d, None, None)
         res["shard"] = (full.placements, torch.equal(full.full_tensor(), x),
                         shard(x, "act_batch") is x)
-    # a "model" axis of 2
+    # a "model" axis of 2: the state in "model" shards, before and after a
+    # step
     wide = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
-    try:
-        build_train_step(cfg, _cfg("olmo_1b")[1], rules=make_rules(wide))
-        res["model_axis"] = None
-    except ValueError as e:
-        res["model_axis"] = str(e)
+    rules = make_rules(wide)
+    st = init_train_state(cfg, 0, opt_cfg=_cfg("olmo_1b")[1], device="cpu",
+                          rules=rules)
+    after, _ = _run("olmo_1b", rules, _batch(cfg, 4), state=st)
+
+    def layout(state):
+        from repro_torch.train.step import _check_shards
+        for tree in (state.params, state.opt.mu, state.opt.nu):
+            _check_shards(tree, param_logical_axes(cfg), rules, "state")
+        return True
+    blocks = st.params["blocks"]["attn+mlp"]
+    res["model_shards"] = (layout(st), layout(after),
+                           tuple(blocks["w_gate"].to_local().shape),
+                           tuple(st.params["embed"].to_local().shape))
     return res if rank == 0 else None
 
 
@@ -291,8 +305,12 @@ def test_mesh_of_one_equals_the_unsharded_step(runs, compress):
     assert set(m) == set(wm) and all(torch.equal(m[k], wm[k]) for k in wm)
 
 
-def test_model_axis_above_one_raises(runs):
-    assert "'model' axis larger than 1" in runs["two"]["model_axis"]
+def test_state_rests_in_model_shards(runs):
+    before, after, w_gate, embed = runs["two"]["model_shards"]
+    cfg, _ = _cfg("olmo_1b")
+    assert before and after
+    assert w_gate == (cfg.n_layers, cfg.d_model, cfg.d_ff // 2)
+    assert embed == (cfg.vocab_size // 2, cfg.d_model)
 
 
 def test_shard_redistributes_a_dtensor(runs):

@@ -52,13 +52,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import datetime
 import json
-import os
 import pathlib
-import socket
 import statistics
 import sys
+
+from probe_ranks import checksum, clock, free, join, launch, mesh_shapes
+from probe_ranks import report as report_of
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
@@ -102,17 +102,6 @@ def _run(cfg, params, toks, steps, dtype, dev, rules=None, timed=False,
 
     on_card = dev.type == "cuda"
 
-    def clock(fn):
-        if not on_card:
-            return fn(), 0.0
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-        return out, start.elapsed_time(end)
-
     if timed:
         prefill(params, batch, fresh())                      # warm-up
         if on_card:
@@ -121,12 +110,12 @@ def _run(cfg, params, toks, steps, dtype, dev, rules=None, timed=False,
     # fresh leaves: a prefill continues from the recurrent state it finds
     caches = fresh()
     (logits, caches), prefill_ms = clock(
-        lambda: prefill(params, batch, caches))
+        lambda: prefill(params, batch, caches), on_card)
     seen = [] if timed else [_whole(logits)]
     step_ms = []
     for i in range(steps):
         (logits, caches), ms = clock(lambda: decode(
-            params, toks[:, s + i:s + i + 1], caches, s + i))
+            params, toks[:, s + i:s + i + 1], caches, s + i), on_card)
         step_ms.append(ms)
         if not timed:
             seen.append(_whole(logits))
@@ -141,22 +130,13 @@ def _run(cfg, params, toks, steps, dtype, dev, rules=None, timed=False,
                        for name, t in leaves.items()}}
 
 
-def _checksum(t) -> float:
-    """The sum of ``t`` in f64, 2^26 elements at a time (no f64 copy of
-    the whole leaf)."""
-    import torch
-    return sum(float(c.sum(dtype=torch.float64))
-               for c in t.reshape(-1).split(1 << 26))
-
-
 def _errs(got: dict, want: dict) -> dict:
     """Per entry: the largest |got - want| and the largest |want|."""
     return {k: [float((got[k].float() - w.float()).abs().max()),
                 float(w.float().abs().max())] for k, w in want.items()}
 
 
-def rank_main(rank, args, port):
-    import gc
+def rank_main(rank, args):
     from unittest import mock
 
     import torch
@@ -170,29 +150,12 @@ def rank_main(rank, args, port):
     from repro_torch.pytree import tree_leaves
     from repro_torch.sharding import make_rules
 
-    on_card = args.device == "cuda"
-    if on_card:
-        torch.cuda.set_device(rank)
-        dev = torch.device("cuda", rank)
-    else:
-        torch.set_num_threads(1)
-        dev = torch.device("cpu")
-    dist.init_process_group(
-        "nccl" if on_card else "gloo",
-        init_method=f"tcp://localhost:{port}", rank=rank,
-        world_size=args.cards, device_id=dev if on_card else None,
-        timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    dev = join(rank, args, TIMEOUT_S)
+    on_card = dev.type == "cuda"
     ok = True
 
     def report(rec):
-        every = [None] * args.cards
-        dist.all_gather_object(every, rec)
-        return every
-
-    def free():
-        gc.collect()
-        if on_card:
-            torch.cuda.empty_cache()
+        return report_of(rec, args.cards)
 
     def inputs(cfg, batch, seq, step):
         b = make_batch(cfg, batch, seq, step=step, seed=args.seed)
@@ -224,7 +187,7 @@ def rank_main(rank, args, port):
             toks, extra = inputs(cfg, batch, prompt + args.steps, 1)
             kw = {"max_seq": args.max_seq} if args.long else {}
             params = init_params(cfg, args.seed, device=dev)
-            sums = report([_checksum(t) for t in tree_leaves(params)])
+            sums = report([checksum(t) for t in tree_leaves(params)])
             if any(s != sums[0] for s in sums):
                 raise RuntimeError(f"{arch}: the cards drew other weights")
             with mock.patch.object(lm, "COMPUTE_DTYPE", torch.float32):
@@ -233,15 +196,14 @@ def rank_main(rank, args, port):
             base_t = _run(cfg, params, toks, args.steps, torch.bfloat16,
                           dev, timed=True, extra=extra, **kw)
             del params
-            free()
-            for shape in args.meshes.split(","):
-                dims = tuple(int(x) for x in shape.split("x"))
+            free(on_card)
+            for dims in mesh_shapes(args):
                 mesh = init_device_mesh(dev.type, dims,
                                         mesh_dim_names=("data", "model"))
                 rules = rules_of(mesh)
                 params = shard_params(init_params(cfg, args.seed,
                                                   device=dev), cfg, rules)
-                free()
+                free(on_card)
                 held = sum(t.to_local().numel() * t.to_local().element_size()
                            for t in tree_leaves(params))
                 with mock.patch.object(lm, "COMPUTE_DTYPE", torch.float32):
@@ -252,13 +214,13 @@ def rank_main(rank, args, port):
                 err = {what: max(e for e, _ in v.values())
                        for what, v in by.items()}
                 del got
-                free()
+                free(on_card)
                 t = _run(cfg, params, toks, args.steps, torch.bfloat16, dev,
                          rules, timed=True, extra=extra, **kw)
                 every = report({"err": err, "by": by, "timed": t, "held_GB":
                                 held / 1e9})
                 del params
-                free()
+                free(on_card)
                 passed = all(max(r["err"].values()) <= F32_TOL
                              for r in every)
                 ok &= passed
@@ -316,23 +278,8 @@ def main() -> int:
     ap.add_argument("--max-seq", type=int, default=524288,
                     help="--long: cache slots")
     args = ap.parse_args()
-    for shape in args.meshes.split(","):
-        d, m = (int(x) for x in shape.split("x"))
-        if d * m != args.cards:
-            raise SystemExit(f"mesh {shape} is not {args.cards} cards")
-    if args.device == "cuda":
-        import torch
-        if torch.cuda.device_count() < args.cards:
-            raise SystemExit(f"{args.cards} cards asked for, "
-                             f"{torch.cuda.device_count()} present")
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    import torch.multiprocessing as mp
-    os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "1")
-    mp.start_processes(rank_main, args=(args, port), nprocs=args.cards,
-                       start_method="spawn")
-    return 0
+    mesh_shapes(args)
+    return launch(rank_main, args)
 
 
 if __name__ == "__main__":
