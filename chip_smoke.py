@@ -199,10 +199,26 @@ Phases (any failed check raises, so the script exits non-zero):
    sharded steps from the same seed, every param, ``mu`` and ``nu`` leaf,
    the losses and gradient norms equal bit for bit (deterministic
    algorithms on); then 3 steps of each timed with CUDA events, tokens/s,
-   peak memory and ``train_work``'s bound; the dry run of ``paligemma_3b``
-   x ``train_4k``: FLOPs a device and the tensor-parallel collective
-   bytes;
-16. the kernels line, the card's name and power limit, and the last line:
+   peak memory and ``train_work``'s bound; the dry run's count of the
+   tensor-parallel collective bytes a device of ``paligemma_3b`` x
+   ``train_4k``;
+16. the ("pod", "data", "model") mesh of one card (``pod_phase``), on the
+   same process group, with the kernels' counters zeroed before and read
+   after (none launched): (a) qwen3-moe-235b-a22b at every published
+   width, 1 of 94 layers, bf16 params and moments, 8 x 2048 tokens a step
+   in 8 microbatches, ``remat="full"``, phase 11's AdamW configuration,
+   under ``make_rules(mesh)`` (the batch and the FSDP dim over ("pod",
+   "data")): 2 unsharded steps, their leaves kept on the host, then 2
+   sharded steps from the same seed, every param, ``mu`` and ``nu`` leaf,
+   the losses and gradient norms equal bit for bit (deterministic
+   algorithms on); then 5 steps of each timed with CUDA events (median
+   and range), tokens/s, peak memory and ``train_work``'s bound for a
+   bf16 state; (b) phase 13's serving cell (4 of 94 layers, 8 x 2048
+   prompt, 32 greedy decode steps) under the multi-pod rules, f32 compute
+   at the check size and bf16 as served, logits and caches bit for bit
+   the unsharded path's, prefill and decode times and peak memory beside
+   phase 13's from the same run;
+17. the kernels line, the card's name and power limit, and the last line:
    ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.
@@ -327,6 +343,17 @@ TP_TIMED = 3                 # for bit; then TP_TIMED timed steps of each
                              # (3, not 5: the phase keeps near 150 s)
 TP_STATE_ARCHS = ("paligemma_3b", "gemma_7b", "phi3_medium_14b",
                   "jamba_v01_52b", "dbrx_132b", "qwen3_moe_235b_a22b")
+# phase 16: the ("pod", "data", "model") mesh of one card; qwen3-moe's
+# train step at every published width, 1 of 94 layers (22.4 GB of bf16
+# state: every expert of a layer), bf16 params and moments
+POD_AXES = ("pod", "data", "model")
+POD_ARCH = "qwen3_moe_235b_a22b"
+POD_LAYERS = 1
+POD_BATCH = 8                # 8 x 2048 a step in POD_ACCUM microbatches
+POD_SEQ = 2048
+POD_ACCUM = 8
+POD_EQUAL_STEPS = 2          # unsharded, then sharded, from one seed: bit
+POD_TIMED = 5                # for bit; then POD_TIMED timed steps of each
 # Tolerances of phase 11 (fixed before its first run on the card):
 TRAIN_LOSS_RTOL = 1e-5       # loss, card vs CPU (f32 compute)
 TRAIN_GRAD_TOL = 1e-4        # grad leaves, card vs CPU and accum 2 vs 1 (f32),
@@ -2245,14 +2272,16 @@ def lm_families_phase(dev, name: str, bw: float) -> dict:
     return out
 
 
-def train_work(cfg, batch: int, seq: int, n_params: int, remat: str) -> dict:
+def train_work(cfg, batch: int, seq: int, n_params: int, remat: str,
+               elem: int = 4) -> dict:
     """What one train step of ``batch`` x ``seq`` tokens does, from
     ``lm_work``'s count of a prefill (its head widened to every token, as
     the loss needs): operations three times the forward's (the forward and
     a backward of twice it), plus one forward more for ``remat="full"`` in
     the ``"reference"`` count (the recomputed repeats); bytes the state
-    that the update reads and writes, 28 per param (param, first and second
-    moment read and written, gradient read; f32)."""
+    that the update reads and writes, 7 elements of ``elem`` bytes per
+    param (param, first and second moment read and written, gradient
+    read: 28 bytes in f32, 14 in bf16)."""
     fwd = lm_work(cfg, 0, batch, seq)
     head = 2 * (batch * seq - batch) * cfg.d_model * cfg.vocab_size
     out = {}
@@ -2260,7 +2289,7 @@ def train_work(cfg, batch: int, seq: int, n_params: int, remat: str) -> dict:
         mult = 3 + (1 if remat == "full" and what == "reference" else 0)
         out[what] = {"bf16_ops": mult * (w["bf16_ops"] + head),
                      "f32_ops": mult * w["f32_ops"],
-                     "bytes": 28 * n_params}
+                     "bytes": 7 * elem * n_params}
     return out
 
 
@@ -3211,6 +3240,93 @@ def families_serving_phase(dev, name: str, bw: float,
     return out
 
 
+def train_pair(plain, step, state_of, batches: list, equal: int,
+               timed: int, tokens: int, what: str) -> tuple:
+    """The unsharded step ``plain`` and the sharded ``step``, each from its
+    own ``state_of(sharded)`` (one seed): ``equal`` steps under PyTorch's
+    deterministic algorithms (the embedding's backward adds with float
+    atomics on the card), the unsharded leaves kept on the host; the
+    sharded state rests in ``DTensor``s and its leaves, losses and
+    gradient norms equal the unsharded ones bit for bit; then ``timed``
+    steps of each timed with CUDA events.  Each step's state replaces the
+    last, so no name keeps an earlier state alive.  Returns (figures by
+    "unsharded" and "sharded", the leaves compared, the params)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import param_count
+    from repro_torch.pytree import tree_leaves
+
+    def host_leaves(state):
+        """Each leaf of ``state`` whole on the host, one at a time."""
+        for t in tree_leaves(state):
+            yield (t.full_tensor() if isinstance(t, DTensor) else t).cpu()
+
+    def run(fn, held: dict, first: int, n: int):
+        losses, norms, times = [], [], []
+        for i in range(first, first + n):
+            (held["state"], m), ms = event_ms(
+                lambda: fn(held["state"], batches[i]))
+            losses.append(m["loss"].clone())
+            norms.append(m["grad_norm"].clone())
+            times.append(ms)
+        return losses, norms, times
+
+    figures = {}
+    for which, fn in (("unsharded", plain), ("sharded", step)):
+        torch.cuda.reset_peak_memory_stats()
+        held = {}
+        held["state"], t_init = sync_time(
+            lambda: state_of(which == "sharded"))
+        if which == "sharded":
+            check(all(isinstance(t, DTensor) for t in tree_leaves(
+                (held["state"].params, held["state"].opt.mu,
+                 held["state"].opt.nu))),
+                "the sharded state rests in DTensors")
+        n_params = param_count(held["state"].params)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            losses, norms, eq_ms = run(fn, held, 0, equal)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        eq_peak = torch.cuda.max_memory_allocated() / 1e9
+        if which == "unsharded":
+            want = list(host_leaves(held["state"]))
+            want_m = (losses, norms)
+        else:
+            same = [torch.equal(a, b)
+                    for a, b in zip(host_leaves(held["state"]), want)]
+            check(len(same) == len(want) and all(same),
+                  f"every param, mu and nu leaf after {equal} {what} "
+                  "equals the unsharded step's bit for bit")
+            check(all(torch.equal(a, b) for a, b in zip(losses, want_m[0]))
+                  and all(torch.equal(a, b)
+                          for a, b in zip(norms, want_m[1])),
+                  "the losses and gradient norms equal the unsharded "
+                  "step's bit for bit")
+            n_leaves = len(want)
+            del want
+        torch.cuda.reset_peak_memory_stats()
+        t_losses, _, times = run(fn, held, equal, timed)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        vals = [float(v) for v in t_losses]
+        check(all(math.isfinite(v) for v in vals),
+              f"every timed {which} loss is finite")
+        med = statistics.median(times)
+        figures[which] = {
+            "init_s": t_init, "equal_steps_ms": eq_ms,
+            "equal_losses": [float(v) for v in losses],
+            "step_ms": times, "step_ms_median": med,
+            "step_ms_range": [min(times), max(times)],
+            "tokens_per_s": tokens / med * 1e3,
+            "losses": vals, "max_memory_allocated_GB": peak,
+            "max_memory_allocated_GB_equal_steps": eq_peak}
+        del held
+        gc.collect()
+        torch.cuda.empty_cache()
+    return figures, n_leaves, n_params
+
+
 def tp_train_phase(dev, name: str, bw: float) -> dict:
     """Phase 15: the tensor-parallel train step on the NCCL process group
     of one that phases 12-14 ran on.  (a) ``TP_ARCH`` whole under
@@ -3224,17 +3340,18 @@ def tp_train_phase(dev, name: str, bw: float) -> dict:
     warm-ups; then ``TP_TIMED`` steps of each, timed with CUDA events, with
     tokens/s, peak memory and ``train_work``'s bound.  (d) The ``train_4k``
     state bytes a device on (16, 16) under the tensor-parallel rules for
-    ``TP_STATE_ARCHS`` (from ``input_specs``), and the dry run's record of
-    ``TP_ARCH`` x ``train_4k``.  (e) The match kernels' counters are zeroed
+    ``TP_STATE_ARCHS`` (from ``input_specs``), and the dry run's count of
+    the collective bytes a device of ``TP_ARCH`` x ``train_4k``
+    (``dryrun.shards_collectives``; the dry run's FLOP count, the whole
+    step at the global shapes on fake tensors, takes two minutes of host
+    time and is held in the CPU tests and in phase 12).  (e) The match kernels' counters are zeroed
     before and read after (none launched).  Returns the phase's record."""
     import torch
-    from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import SHAPES, get_config, train_settings
     from repro_torch.data import TokenPipeline
     from repro_torch.launch import make_production_mesh, mesh_for_devices
-    from repro_torch.launch.dryrun import run_cell, shard_bytes
-    from repro_torch.models import param_count
+    from repro_torch.launch.dryrun import shard_bytes, shards_collectives
     from repro_torch.optim import AdamWConfig
     from repro_torch.pytree import tree_leaves
     from repro_torch.sharding import make_rules
@@ -3285,78 +3402,12 @@ def tp_train_phase(dev, name: str, bw: float) -> dict:
         f"{cfg.n_kv_heads} kv head, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}), accum {accum}, mesh {dict(rules.sizes)}")
 
-    def host_leaves(state):
-        """Each leaf of ``state`` whole on the host, one at a time."""
-        for t in tree_leaves(state):
-            yield (t.full_tensor() if isinstance(t, DTensor) else t).cpu()
-
-    def run(fn, held: dict, first: int, n: int):
-        """``n`` steps from ``held["state"]``, each step's state replacing
-        it there, so that no name keeps an earlier state (30 GB) alive."""
-        losses, norms, times = [], [], []
-        for i in range(first, first + n):
-            (held["state"], m), ms = event_ms(
-                lambda: fn(held["state"], batches[i]))
-            losses.append(m["loss"].clone())
-            norms.append(m["grad_norm"].clone())
-            times.append(ms)
-        return losses, norms, times
-
-    figures = {}
-    for which, fn in (("unsharded", plain), ("sharded", step)):
-        torch.cuda.reset_peak_memory_stats()
-        held = {}
-        held["state"], t_init = sync_time(lambda: init_train_state(
+    figures, n_leaves, n_params = train_pair(
+        plain, step, lambda sharded: init_train_state(
             cfg, LM_SEED, opt_cfg=opt, device=dev,
-            rules=rules if which == "sharded" else None))
-        if which == "sharded":
-            check(all(isinstance(t, DTensor) for t in tree_leaves(
-                (held["state"].params, held["state"].opt.mu,
-                 held["state"].opt.nu))),
-                "the sharded state rests in DTensors")
-        n_params = param_count(held["state"].params)
-        # the embedding's backward adds with float atomics on the card:
-        # the equal steps use PyTorch's deterministic algorithms
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            losses, norms, eq_ms = run(fn, held, 0, TP_EQUAL_STEPS)
-        finally:
-            torch.use_deterministic_algorithms(False)
-        eq_peak = torch.cuda.max_memory_allocated() / 1e9
-        if which == "unsharded":
-            want = list(host_leaves(held["state"]))
-            want_m = (losses, norms)
-        else:
-            same = [torch.equal(a, b)
-                    for a, b in zip(host_leaves(held["state"]), want)]
-            check(len(same) == len(want) and all(same),
-                  f"every param, mu and nu leaf after {TP_EQUAL_STEPS} "
-                  "tensor-parallel steps on the mesh of one equals the "
-                  "unsharded step's bit for bit")
-            check(all(torch.equal(a, b) for a, b in zip(losses, want_m[0]))
-                  and all(torch.equal(a, b)
-                          for a, b in zip(norms, want_m[1])),
-                  "the losses and gradient norms equal the unsharded "
-                  "step's bit for bit")
-            n_leaves = len(want)
-            del want
-        torch.cuda.reset_peak_memory_stats()
-        t_losses, _, times = run(fn, held, TP_EQUAL_STEPS, TP_TIMED)
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        vals = [float(v) for v in t_losses]
-        check(all(math.isfinite(v) for v in vals),
-              f"every timed {which} loss is finite")
-        med = statistics.median(times)
-        figures[which] = {
-            "init_s": t_init, "equal_steps_ms": eq_ms,
-            "equal_losses": [float(v) for v in losses],
-            "step_ms": times, "step_ms_median": med,
-            "tokens_per_s": TP_BATCH * TP_SEQ / med * 1e3,
-            "losses": vals, "max_memory_allocated_GB": peak,
-            "max_memory_allocated_GB_equal_steps": eq_peak}
-        del held
-        gc.collect()
-        torch.cuda.empty_cache()
+            rules=rules if sharded else None),
+        batches, TP_EQUAL_STEPS, TP_TIMED, TP_BATCH * TP_SEQ,
+        "tensor-parallel steps on the mesh of one")
     work = train_work(cfg, TP_BATCH, TP_SEQ, n_params, TRAIN_REMAT)
     out["main"] = {
         "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
@@ -3369,10 +3420,13 @@ def tp_train_phase(dev, name: str, bw: float) -> dict:
         "bound_ms_by": {w: lm_bound_ms(work[w], bw, peaks) for w in work}}
     log(json.dumps({"tp_train": out["main"]}))
 
-    # -- (d) the dry run of the cell ------------------------------------------------
+    # -- (d) the dry run's collective count of the cell -------------------
     t0 = time.perf_counter()
-    rec = run_cell(TP_ARCH, "train_4k", multi_pod=False, save=False)
-    rec["run_s"] = time.perf_counter() - t0
+    counted = shards_collectives(cfg, make_rules(mesh), shape, settings)
+    rec = {"arch": TP_ARCH, "shape": "train_4k", "mesh": list(mesh.shape),
+           "settings": settings,
+           "collectives": {k: v for k, v in counted.items() if v},
+           "run_s": time.perf_counter() - t0}
     # at least one (tokens, d_model) f32 sum over "model" a layer and
     # microbatch (the MLP's, whose hidden dim 16 divides)
     tokens = shape.global_batch // mesh.shape[0] // accum * shape.seq_len
@@ -3387,6 +3441,145 @@ def tp_train_phase(dev, name: str, bw: float) -> dict:
           "match kernel")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 15: {out['seconds']:.1f} s")
+    return out
+
+
+def pod_phase(dev, name: str, bw: float, phase13: dict) -> dict:
+    """Phase 16: the ("pod", "data", "model") mesh of one card under
+    ``make_rules(mesh)``, on the NCCL process group of one that phases
+    12-15 ran on.  (a) ``POD_ARCH`` at every published width cut to
+    ``POD_LAYERS`` layer, bf16 params and moments and its bf16
+    accumulation (``TRAIN_SETTINGS``), ``POD_ACCUM`` microbatches of
+    ``POD_BATCH`` x ``POD_SEQ`` tokens, ``remat="full"``, phase 11's AdamW
+    configuration: ``POD_EQUAL_STEPS`` unsharded steps, their leaves kept
+    on the host, then as many sharded steps from the same seed on the
+    ``shard_params`` of the same kind of state: every param, ``mu`` and
+    ``nu`` leaf, the losses and the gradient norms equal bit for bit
+    (deterministic algorithms on); then ``POD_TIMED`` steps of each, timed
+    with CUDA events, with tokens/s, peak memory and ``train_work``'s
+    bound.  (b) Phase 13's serving cell (``LM_ARCH`` at ``LM_LAYERS``
+    layers, f32 compute at the check size, bf16 as served) under the same
+    rules, bit for bit the unsharded path, its times beside phase 13's
+    (``phase13``, its serve record).  (c) The match kernels' counters are
+    zeroed before and read after (none launched).  Returns the phase's
+    record."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config, train_settings
+    from repro_torch.data import TokenPipeline, make_batch
+    from repro_torch.models import init_params, lm
+    from repro_torch.models.params import shard_params
+    from repro_torch.optim import AdamWConfig, OptState, adamw_init
+    from repro_torch.pytree import tree_map
+    from repro_torch.sharding import make_rules
+    from repro_torch.train import TrainState, build_train_step
+
+    t_phase = time.perf_counter()
+    zero_counts()
+    out = {}
+    mesh = init_device_mesh(dev.type, (1, 1, 1), mesh_dim_names=POD_AXES)
+    rules = make_rules(mesh)
+    check(rules.table["act_batch"] == ("pod", "data")
+          and rules.table["embed"] == ("pod", "data")
+          and not rules.table["_gather_tp"],
+          "the multi-pod rules: the batch and the FSDP dim over (pod, data)")
+
+    # -- (a) the train step -----------------------------------------------------
+    cfg = dataclasses.replace(get_config(POD_ARCH), n_layers=POD_LAYERS)
+    settings = train_settings(POD_ARCH)
+    check(all(settings.get(k) == "bfloat16" for k in (
+        "param_dtype", "mu_dtype", "nu_dtype", "accum_dtype")),
+        f"{POD_ARCH} trains bf16 params, moments and accumulation")
+    opt = AdamWConfig(**TRAIN_OPT, mu_dtype="bfloat16",
+                      nu_dtype="bfloat16")
+    batches = [TokenPipeline(cfg, POD_BATCH, POD_SEQ, seed=LM_SEED)
+               .batch_at(i) for i in range(POD_EQUAL_STEPS + POD_TIMED)]
+    kw = dict(accum=POD_ACCUM, remat=TRAIN_REMAT,
+              accum_dtype=torch.bfloat16)
+    plain = build_train_step(cfg, opt, **kw)
+    step = build_train_step(cfg, opt, rules=rules, **kw)
+    log(f"pod train: {cfg.name}, {cfg.n_layers} of 94 layers ({cfg.n_experts} "
+        f"experts x d_ff {cfg.expert_ff}, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}), bf16 state, accum {POD_ACCUM}, mesh "
+        f"{dict(rules.sizes)}")
+
+    def state_of(sharded: bool) -> TrainState:
+        """A bf16 state from ``LM_SEED`` (the f32 draw cast, then freed);
+        sharded, the ``shard_params`` of each tree (no copy on a mesh of
+        one)."""
+        params = tree_map(lambda p: p.to(torch.bfloat16),
+                          init_params(cfg, LM_SEED, device=dev))
+        st = adamw_init(params, opt)
+        if not sharded:
+            return TrainState(params, st, None)
+        put = lambda tree: shard_params(tree, cfg, rules)
+        return TrainState(put(params), OptState(put(st.mu), put(st.nu),
+                                                st.step), None)
+
+    figures, n_leaves, n_params = train_pair(
+        plain, step, state_of, batches, POD_EQUAL_STEPS, POD_TIMED,
+        POD_BATCH * POD_SEQ, "steps on the (pod, data, model) mesh of one")
+    state_gb = 6 * n_params / 1e9           # bf16 params, mu and nu
+    work = train_work(cfg, POD_BATCH, POD_SEQ, n_params, TRAIN_REMAT,
+                      elem=2)
+    peaks = peak_flops(name)
+    out["train"] = {
+        "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+        "state_GB": state_gb, "mesh": dict(rules.sizes),
+        "rules": "make_rules(mesh)", "accum": POD_ACCUM,
+        "batch": POD_BATCH, "seq": POD_SEQ, "remat": TRAIN_REMAT,
+        "dtypes": "bf16 params, moments and accumulation",
+        "equal": {"steps": POD_EQUAL_STEPS, "leaves": n_leaves,
+                  "losses": "bit for bit"},
+        **figures, "work": work,
+        "bound_ms_by": {w: lm_bound_ms(work[w], bw, peaks) for w in work}}
+    log(json.dumps({"pod_train": out["train"]}))
+
+    # -- (b) phase 13's serving cell under the multi-pod rules --------------
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    params, t_init = sync_time(lambda: init_params(cfg, LM_SEED, device=dev))
+    steps, held = pair_steps(cfg, params, rules)
+
+    def both(toks, n, dtype):
+        return served_both(steps, held, cfg, toks, n, dtype,
+                           f"pod {dtype}")
+
+    ctoks = torch.from_numpy(make_batch(cfg, LM_CHECK_BATCH, LM_CHECK_SEQ,
+                                        seed=LM_SEED)["tokens"]).to(dev)
+    with mock.patch.object(lm, "COMPUTE_DTYPE", torch.float32):
+        both(ctoks, LM_DECODE, torch.float32)
+    toks = torch.from_numpy(make_batch(cfg, LM_BATCH, LM_PROMPT, step=1,
+                                       seed=LM_SEED)["tokens"]).to(dev)
+    runs = both(toks, LM_DECODE, torch.bfloat16)
+    timed = {label: timed_figures(runs[which], LM_BATCH * LM_PROMPT)
+             for which, label in ((None, "unsharded"), ("mesh", "sharded"))}
+    out["serve"] = {
+        "arch": cfg.name, "layers": cfg.n_layers, "mesh": dict(rules.sizes),
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": LM_DECODE,
+        "init_s": t_init,
+        "equal": {"float32": [LM_CHECK_BATCH, LM_CHECK_SEQ, LM_DECODE],
+                  "bfloat16": [LM_BATCH, LM_PROMPT, LM_DECODE]},
+        **timed,
+        "phase13": {k: phase13[k] for k in ("unsharded", "sharded")},
+        "pod_over_phase13_sharded": {
+            "prefill": timed["sharded"]["prefill_ms"]
+            / phase13["sharded"]["prefill_ms"],
+            "decode": timed["sharded"]["decode_ms_per_step_median"]
+            / phase13["sharded"]["decode_ms_per_step_median"]}}
+    log(json.dumps({"pod_serve": out["serve"]}))
+    del params, steps, held, runs, toks, ctoks
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = read_counts()
+    log(f"phase 16 launches: {counts}")
+    check(not any(counts.values()), "the pod mesh's train and serving "
+          "steps launch no match kernel")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16: {out['seconds']:.1f} s")
     return out
 
 
@@ -3614,7 +3807,9 @@ def main() -> int:
     # -- 12. sharding: the data-parallel step on a mesh of one, the dry run;
     # -- 13. sharded serving on the same NCCL process group of one;
     # -- 14. every family sharded there, the long-context layout too;
-    # -- 15. the tensor-parallel train step there, paligemma-3b whole ------
+    # -- 15. the tensor-parallel train step there, paligemma-3b whole;
+    # -- 16. the ("pod", "data", "model") mesh there: qwen3-moe trained and
+    # --     served ---------------------------------------------------------------
     import tempfile
 
     import torch.distributed as dist
@@ -3630,17 +3825,20 @@ def main() -> int:
             sharding_phase(dev, name, bw, trained["main"], tmp)
             gc.collect()
             torch.cuda.empty_cache()
-            serving_phase(dev, name, bw, served_lm["serve"])
+            sharded_lm = serving_phase(dev, name, bw, served_lm["serve"])
             gc.collect()
             torch.cuda.empty_cache()
             families_serving_phase(dev, name, bw, families)
             gc.collect()
             torch.cuda.empty_cache()
             tp_train_phase(dev, name, bw)
+            gc.collect()
+            torch.cuda.empty_cache()
+            pod_phase(dev, name, bw, sharded_lm["serve"])
         finally:
             dist.destroy_process_group()
 
-    # -- 16. result --------------------------------------------------------------
+    # -- 17. result --------------------------------------------------------------
     log(smi)
     log(json.dumps({"kernels": [bitplane, packed, banked]}))
     log(json.dumps({"ok": True, "device": {

@@ -14,15 +14,17 @@ and records per cell, in the JAX package's record (its ``run_cell``):
                   global shapes on fake tensors (``FakeTensorMode``, which
                   allocates nothing) under ``FlopCounterMode``, divided by
                   the devices that share the work under the specs;
-  * collectives — per-device bytes by collective type of the sharded
-                  step (``train.build_train_step(..., rules=)``): from
-                  the placements of the data-parallel scheme (serving,
-                  ``dp_only`` and multi-pod train cells), and for the
-                  single-pod train cells under the tensor-parallel rules
-                  from the step's own collectives, counted by running one
-                  microbatch of it on fake tensors at one rank's shapes
-                  with a ``Shards`` that records each collective instead
-                  of running it (``shards_collectives``);
+  * collectives — per-device bytes by collective type of the step the
+                  port runs there (``train.build_train_step(...,
+                  rules=)``, ``build_prefill_step``/``build_decode_step``
+                  with the rules): the tensor-parallel train cells and
+                  every serving cell, on both meshes, from the step's own
+                  collectives, counted by running it on fake tensors at
+                  rank 0's shapes with a ``Shards`` that records each
+                  collective instead of running it
+                  (``shards_collectives``); the ``dp_only`` train cells
+                  from the placements of the data-parallel scheme they
+                  run (``collective_bytes``);
 
 into ``artifacts/dryrun_torch/<arch>__<shape>__<tag>.json``.  Figures that
 only a compiler gives (temporaries, bytes accessed, code size, compile
@@ -47,10 +49,9 @@ from ..configs import ARCHS, SHAPES, get_config, shape_cells, train_settings
 from ..optim import AdamWConfig
 from ..pytree import tree_leaves
 from ..sharding import make_rules, mesh_sizes
-from ..sharding.collectives import Shards
+from ..sharding.collectives import Shards, _axes, batch_axes
 from ..train import (build_decode_step, build_prefill_step, build_train_step,
                      input_specs)
-from ..train.step import batch_axes
 from .mesh import make_production_mesh
 
 __all__ = ["run_cell", "main", "shard_bytes", "collective_bytes",
@@ -75,26 +76,34 @@ DERIVED = {
              "(decode) of cache_seq",
     "collectives": "bytes per device and collective type: an "
                    "all-gather counts its output, a reduce-scatter its "
-                   "output shard, an all-reduce its tensor.  Serving and "
-                   "dp_only train cells: the all-gather of every sharded "
-                   "param leaf at use (its whole bytes); train also "
-                   "reduces each gradient over the batch's mesh axes in "
+                   "output shard, an all-reduce its tensor, once for each "
+                   "process group it runs on (one an axis of size > 1, "
+                   "or the default group where the axes are every "
+                   "device).  dp_only train cells: the all-gather of "
+                   "every sharded param leaf at use (its whole bytes); "
+                   "each gradient reduced over the batch's mesh axes in "
                    "mesh order (reduce-scatter where the leaf is sharded "
-                   "on the axis, else all-reduce) and all-reduces the "
-                   "loss, token count and squared norm (4 bytes each).  "
-                   "Single-pod train cells under the tensor-parallel "
-                   "rules (the multi-pod mesh trains no tensor-parallel "
-                   "step yet and keeps the data-parallel count): one "
-                   "microbatch of the rank's rows through loss_fn and its "
-                   "backward on FakeTensorMode tensors at rank 0's local "
-                   "shapes, every collective of sharding.collectives "
-                   "recorded (the per-layer gathers over 'data' at use, "
-                   "again in remat's recompute, and their reduce-scatters; "
-                   "the all-reduces over 'model' of each sum forward and "
-                   "each enter backward; the router logits' gathers), "
-                   "times accum; plus the all-reduce over 'data' of each "
-                   "gradient replicated there (f32) and the loss, token "
-                   "count and squared norm (4 bytes each)",
+                   "on the axis, else all-reduce); each microbatch's "
+                   "token-loss sum and label count all-reduced over the "
+                   "batch axes, and the squared norm (4 bytes each).  "
+                   "Tensor-parallel train cells and every prefill and "
+                   "decode cell: the step run on FakeTensorMode tensors "
+                   "at rank 0's local shapes, every collective of "
+                   "sharding.collectives recorded (train: one microbatch "
+                   "of the rank's rows through loss_fn and its backward, "
+                   "with the per-layer gathers over the FSDP axes at use, "
+                   "again in remat's recompute, and their "
+                   "reduce-scatters, the all-reduces over 'model' of each "
+                   "sum forward and each enter backward, the router "
+                   "logits' and spanning token groups' gathers and the "
+                   "loss's sums over the batch axes, times accum, plus "
+                   "the f32 all-reduce over the batch axes of each "
+                   "gradient replicated there and the squared norm; "
+                   "prefill and decode: the gathers at use, the 'model' "
+                   "all-reduces of Shards.dot, the vocab lookup and the "
+                   "MoE partial sums, the router's and rwkv6's gathers "
+                   "and the long-context softmax combine), at 1 and 2 "
+                   "pattern repeats, extrapolated to the model's depth",
     "null": "temp_bytes, bytes_accessed, code_bytes, t_lower_s and "
             "t_compile_s need a compiler's analysis, which eager PyTorch "
             "does not have",
@@ -115,7 +124,8 @@ def shard_bytes(t, sizes: dict) -> int:
 def collective_bytes(specs: dict, rules, shape, settings: dict) -> dict:
     """Per-device bytes by collective type of the data-parallel scheme:
     the params gathered whole at use and, in a train step, each gradient
-    summed over the mesh axes the batch is split over."""
+    summed over the mesh axes each microbatch is split over, and the loss's
+    sums over them."""
     sizes = rules.sizes
     params = (specs["state"].params if shape.step == "train"
               else specs["params"])
@@ -124,14 +134,14 @@ def collective_bytes(specs: dict, rules, shape, settings: dict) -> dict:
         if any(a is not None for a in p.spec):
             out["all-gather"] += math.prod(p.shape) * p.element_size()
     if shape.step == "train":
-        axes = batch_axes(rules, shape.global_batch)
         accum = settings.get("accum", 1)
+        rec = _Counting(rules, shape.global_batch // accum, {})
+        axes = rec.batch_axes
         gdt = getattr(torch, settings.get("accum_dtype", "float32"))
         for p in tree_leaves(params):
             local = math.prod(p.shape) * (gdt.itemsize if accum > 1
                                           else p.element_size())
-            held = {a for ax in p.spec if ax is not None
-                    for a in (ax if isinstance(ax, tuple) else (ax,))}
+            held = {a for ax in p.spec for a in _axes(ax)}
             for a in rules.mesh.mesh_dim_names:
                 if a not in axes or sizes[a] == 1:
                     continue
@@ -140,19 +150,32 @@ def collective_bytes(specs: dict, rules, shape, settings: dict) -> dict:
                     out["reduce-scatter"] += local
                 else:
                     out["all-reduce"] += local
-        out["all-reduce"] += 4 * (2 + (accum == 1))  # loss, norm, tokens
+        # each microbatch's token-loss sum and label count, and the norm
+        out["all-reduce"] += 4 * (2 * accum * len(rec._groups(axes)) + 1)
     return {k: v for k, v in out.items() if v}
+
+
+class _Stand:
+    """A cache leaf for the recorder: its global shape (``shape``, which
+    the step reads for the ring's length) and rank 0's local tensor."""
+
+    def __init__(self, local: torch.Tensor, shape):
+        self.local, self.shape = local, torch.Size(shape)
+
+    def to_local(self) -> torch.Tensor:
+        return self.local
 
 
 class _Counting(Shards):
     """A ``Shards`` over a device-free mesh that runs no collective: each
     records its bytes by type (``bytes``) and returns a tensor of its
-    result's shape, as rank 0 sees it.  ``data_dims`` gives each param
-    leaf's dim over "data" (by ``id``), which ``at_use`` gathers."""
+    result's shape, as rank 0 sees it.  ``fsdp`` gives each param leaf's
+    (dim, axes) over the FSDP axes (by ``id``), which ``at_use``
+    gathers."""
 
-    def __init__(self, rules, batch: int, data_dims: dict):
-        super().__init__(rules, batch, own_groups=True)
-        self.data_dims = data_dims
+    def __init__(self, rules, batch: int, fsdp: dict):
+        super().__init__(rules, batch)
+        self.fsdp = fsdp
         self.bytes = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
 
     def rank(self, axis):
@@ -161,9 +184,11 @@ class _Counting(Shards):
     def _group(self, axis):
         return axis
 
-    def _groups(self, axis):
-        return [a for a in (axis if isinstance(axis, tuple) else (axis,))
-                if self.size(a) > 1]
+    def _whole_job(self):
+        return True
+
+    def _world(self):
+        return "world"
 
     def _all_reduce(self, t, op, groups):
         self.bytes["all-reduce"] += len(groups) * _nbytes(t)
@@ -181,10 +206,14 @@ class _Counting(Shards):
 
     def at_use(self, leaf, idx=None):
         local = leaf if idx is None else leaf[idx]
-        dim = self.data_dims[id(leaf)]
-        if dim is None or self.size("data") == 1:
+        dim, axes = self.fsdp[id(leaf)]
+        axes = tuple(a for a in axes if self.size(a) > 1)
+        if not axes:
             return local
-        return self.gather_param(local, dim - (idx is not None))
+        return self.gather_param(local, dim - (idx is not None), axes)
+
+    def logits(self, local, vocab):
+        return local
 
 
 def _nbytes(t) -> int:
@@ -193,78 +222,102 @@ def _nbytes(t) -> int:
 
 def shards_collectives(cfg, rules, shape, settings: dict) -> dict:
     """Per-device bytes by collective type that ``sharding.collectives``
-    moves in one tensor-parallel train step: one microbatch of a data
-    rank's rows through ``loss_fn`` and its backward on ``FakeTensorMode``
-    tensors at rank 0's local shapes, with a ``Shards`` that records each
-    collective instead of running it, times ``accum``.  Every repeat of
-    ``cfg.pattern`` moves the same bytes (its leaves' shapes are the same),
-    so the step runs at one and two repeats and the difference is counted
-    ``n_repeat - 1`` times more; also ``replicated_over_data``, the
-    elements of the leaves that rest whole over "data"."""
+    moves in one step of the cell: a tensor-parallel train step (one
+    microbatch of a rank's rows through ``loss_fn`` and its backward,
+    times ``accum``, plus the all-reduce over the batch axes of each
+    gradient replicated there and the squared norm), a prefill or a decode
+    step, on ``FakeTensorMode`` tensors at rank 0's local shapes, with a
+    ``Shards`` that records each collective instead of running it.  Every
+    repeat of ``cfg.pattern`` moves the same bytes (its leaves' and caches'
+    shapes are the same), so the step runs at one and two repeats and the
+    difference is counted ``n_repeat - 1`` times more."""
     import dataclasses
     period = len(cfg.pattern)
-    one, two = (_microbatch_bytes(dataclasses.replace(cfg, n_layers=k *
-                                                      period),
-                                  rules, shape, settings)
+    one, two = (_recorded_bytes(dataclasses.replace(cfg, n_layers=k *
+                                                    period),
+                                rules, shape, settings)
                 for k in (1, 2))
-    accum = settings.get("accum", 1)
-    out = {k: accum * (one[k] + (cfg.n_repeat - 1) * (two[k] - one[k]))
+    times = settings.get("accum", 1) if shape.step == "train" else 1
+    out = {k: times * (one[k] + (cfg.n_repeat - 1) * (two[k] - one[k]))
            for k in one}
-    specs = input_specs(cfg, shape, rules, settings)
-    out["replicated_over_data"] = sum(
-        math.prod(t.shape) for t in tree_leaves(specs["state"].params)
-        if not any("data" in (a if isinstance(a, tuple) else (a,))
-                   for a in t.spec))
+    if shape.step == "train":
+        out["all-reduce"] += _replicated_bytes(cfg, rules, shape, settings)
+        out["all-reduce"] += 4                       # the squared norm
     return out
 
 
-def _microbatch_bytes(cfg, rules, shape, settings: dict) -> dict:
-    """What ``shards_collectives`` records for one microbatch of ``cfg``."""
+def _replicated_bytes(cfg, rules, shape, settings: dict) -> int:
+    """The f32 all-reduces over the batch axes of the gradients of the
+    leaves that rest whole over some of them (``train.sharded_grads``)."""
+    specs = input_specs(cfg, shape, rules, settings)
+    rec = _Counting(rules, shape.global_batch // settings.get("accum", 1),
+                    {})
+    n = 0
+    for t in tree_leaves(specs["state"].params):
+        held = {a for ax in t.spec for a in _axes(ax)}
+        over = tuple(a for a in rec.batch_axes if a not in held)
+        n += 4 * math.prod(rules.local_shape(t.shape, t.spec)) * len(
+            rec._groups(over))
+    return n
+
+
+def _recorded_bytes(cfg, rules, shape, settings: dict) -> dict:
+    """What ``shards_collectives`` records for one microbatch (train) or
+    one step (prefill, decode) of ``cfg``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from ..models import loss_fn
+    from ..models import decode_step, loss_fn, prefill
+    from ..models.lm import cache_logical_axes
     from ..pytree import tree_map
+    from ..train.step import _map_axes
     specs = input_specs(cfg, shape, rules, settings)
-    accum = settings.get("accum", 1)
-    shards = math.prod(rules.sizes[a]
-                       for a in batch_axes(rules, shape.global_batch))
-    rows = shape.global_batch // shards // accum
-    data_dims = {}
+    accum = settings.get("accum", 1) if shape.step == "train" else 1
+    fsdp = {}
+    fsdp_axes = _axes(rules.table.get("embed"))
 
-    def local(t):
-        """Rank 0's shard of ``t`` (a stand-in with its spec), requiring
-        a gradient; its dim over "data" noted for ``at_use``."""
+    def local(t, grad: bool = False):
+        """Rank 0's shard of ``t`` (a stand-in with its spec); its dim
+        over the FSDP axes noted for ``at_use``."""
         spec = tuple(t.spec) + (None,) * (len(t.shape) - len(t.spec))
         out = torch.empty(rules.local_shape(t.shape, spec), dtype=t.dtype,
-                          device="cpu").requires_grad_()
-        data_dims[id(out)] = next(
-            (i for i, a in enumerate(spec)
-             if "data" in (a if isinstance(a, tuple) else (a,))), None)
+                          device="cpu")
+        if grad:
+            out.requires_grad_()
+        hit = [(i, a) for i, ax in enumerate(spec) for a in _axes(ax)
+               if a in fsdp_axes]
+        fsdp[id(out)] = (hit[0][0] if hit else None,
+                         tuple(a for _, a in hit))
         return out
 
+    def rows(t, n):
+        return torch.empty((n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                           device="cpu")
+
     with FakeTensorMode():
-        params = tree_map(local, specs["state"].params)
-        batch = tree_map(lambda t: torch.empty(
-            (rows,) + tuple(t.shape[1:]), dtype=t.dtype, device="cpu"),
-            specs["batch"])
-        counting = _Counting(rules, shape.global_batch, data_dims)
-        loss, _ = loss_fn(params, cfg, batch,
-                          remat=settings.get("remat", "full"),
-                          shards=counting)
-        torch.autograd.grad(loss, tree_leaves(params), allow_unused=True)
+        counting = _Counting(rules, shape.global_batch // accum, fsdp)
+        n = counting.rows[1] - counting.rows[0]
+        if shape.step == "train":
+            params = tree_map(lambda t: local(t, True),
+                              specs["state"].params)
+            batch = tree_map(lambda t: rows(t, n), specs["batch"])
+            loss, _ = loss_fn(params, cfg, batch,
+                              remat=settings.get("remat", "full"),
+                              shards=counting)
+            torch.autograd.grad(loss, tree_leaves(params),
+                                allow_unused=True)
+            return counting.bytes
+        params = tree_map(local, specs["params"])
+        caches = _map_axes(lambda ax, t: _Stand(local(t), t.shape),
+                           cache_logical_axes(cfg), specs["caches"])
+        if shape.step == "prefill":
+            batch = tree_map(lambda t: rows(t, n), specs["batch"])
+            prefill(params, cfg, batch["tokens"], caches,
+                    frontend=batch.get("patches"),
+                    frames=batch.get("frames"), shards=counting)
+        else:
+            decode_step(params, cfg, rows(specs["token"], n), caches,
+                        shape.seq_len - 1, shards=counting)
     return counting.bytes
-
-
-def _tp_collectives(cfg, rules, shape, settings: dict) -> dict:
-    """Per-device bytes by collective type of the tensor-parallel train
-    step (``DERIVED["collectives"]``)."""
-    out = shards_collectives(cfg, rules, shape, settings)
-    n = out.pop("replicated_over_data")
-    if any(rules.sizes[a] > 1 for a in batch_axes(rules,
-                                                   shape.global_batch)):
-        out["all-reduce"] += 4 * n   # their f32 gradients over "data"
-    out["all-reduce"] += 4 * (2 + (settings.get("accum", 1) == 1))
-    return {k: v for k, v in out.items() if v}
 
 
 def _work_shards(rules, shape) -> int:
@@ -363,10 +416,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
             "flops": flops / work,
             "bytes_accessed": None,
         },
-        "collectives": (_tp_collectives(cfg, rules, shape, settings)
-                        if shape.step == "train" and not multi_pod
-                        and not rules.table["_gather_tp"]
-                        else collective_bytes(specs, rules, shape, settings)),
+        "collectives": {k: v for k, v in (
+            collective_bytes(specs, rules, shape, settings)
+            if rules.table["_gather_tp"]
+            else shards_collectives(cfg, rules, shape, settings)).items()
+            if v},
         "settings": settings,
         "t_lower_s": None,
         "t_compile_s": None,

@@ -33,7 +33,7 @@ step (``loss_fn`` with ``shards=``) and sharded serving (``prefill``/
 one rank's part of the step on its rows of the batch, its param shards
 (``models.params.shard_params``) and its cache shards (``init_cache(...,
 rules=)``), with the collectives explicit and each with its backward:
-each layer's weights gathered over "data" at use (their gradients
+each layer's weights gathered over the FSDP axes at use (their gradients
 reduce-scattered back), the vocab-parallel embedding, head and
 cross-entropy, the query heads (and their kv heads) of this rank with the
 output projection's partial sums all-reduced over "model"
@@ -91,7 +91,8 @@ class Ctx:
 
 def _w(shards: Shards | None, a, idx: int | None = None):
     """Param leaf ``a`` (slice ``idx`` of a stacked one) as it is used:
-    itself unsharded, else this rank's shard gathered over "data"."""
+    itself unsharded, else this rank's shard gathered over the FSDP
+    axes."""
     if shards is None:
         return a if idx is None else a[idx]
     return shards.at_use(a, idx)
@@ -512,11 +513,15 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: str = "dots",
     recomputed there.  ``batch`` holds ``tokens`` and ``labels`` (B, S_text)
     and, per configuration, ``patches`` or ``frames``.  Returns
     (loss, {"loss", "tokens"}).  With ``shards``, one rank's part of the
-    sharded train step: ``batch`` is this rank's rows, ``params`` its
-    ``DTensor`` shards, the collectives explicit (each with its backward),
-    and the head's vocab columns split over "model" (the vocab-parallel
-    cross-entropy); the loss is its rows', the same on every rank of
-    "model"."""
+    sharded train step: ``batch`` is this rank's rows of the microbatch
+    ``shards.batch``, ``params`` its ``DTensor`` shards, the collectives
+    explicit (each with its backward), and the head's vocab columns split
+    over "model" (the vocab-parallel cross-entropy).  The loss is the whole
+    microbatch's, the same on every rank: its summed token loss and its
+    label count are each summed over the batch axes (``Shards.sum``, whose
+    backward passes the gradient unchanged), so each rank's gradient is its
+    rows' part of the whole microbatch's, as the reference divides by the
+    microbatch's whole label count."""
     h = _hidden(params, cfg, batch["tokens"], batch.get("patches"),
                 batch.get("frames"), remat, shards)
     labels = torch.as_tensor(batch["labels"], device=h.device).long()
@@ -525,6 +530,7 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: str = "dots",
         pad = labels.new_full((labels.shape[0], cfg.frontend_tokens), -1)
         labels = torch.cat([pad, labels], dim=1)
     w = _head(params, cfg, shards)
+    rows = shards                      # the microbatch's rows over the mesh
     if shards is not None and w.shape[1] < cfg.vocab_size:
         h = shards.enter(h)            # into this rank's vocab columns
     else:
@@ -540,6 +546,9 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: str = "dots",
         loss, n = checkpointed(_chunk_loss, h[:, c0:c0 + chunk],
                                labels[:, c0:c0 + chunk], w, shards)
         tot, cnt = tot + loss, cnt + n
+    if rows is not None:
+        tot, cnt = rows.sum(tot, rows.batch_axes), rows.sum(cnt,
+                                                            rows.batch_axes)
     loss = tot / torch.clamp_min(cnt, 1)
     return loss, {"loss": loss, "tokens": cnt}
 

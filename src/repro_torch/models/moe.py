@@ -97,22 +97,20 @@ def moe_ffn(
     shards=None,                  # sharded serving: this rank's part
 ) -> torch.Tensor:
     """The MoE layer.  With ``shards`` (``sharding.collectives.Shards``),
-    ``x`` is this rank's rows of the batch and ``p`` its shards.  Serving,
-    the token groups and their capacity are the global batch's, as the
-    reference's (GSPMD keeps global semantics): where the groups split
-    evenly over the batch's "data" ranks a rank runs its own groups;
-    otherwise its tokens share groups with other ranks, and the expert
-    choices of every token are gathered over "data" (integers: no
-    gradient) so that each dispatch is ranked in the global order.  In the
-    train step (``shards.own_groups``) a rank's rows are its microbatch and
-    form their own groups.  Experts split over "model" run only this
-    rank's experts, on ``x`` entered into its part (``Shards.enter``), as
-    the router's logits of its experts' columns are; the combined outputs
-    are then partial sums, added over "model"."""
+    ``x`` is this rank's rows of the batch (serving's, or a microbatch of
+    the train step) and ``p`` its shards.  The token groups and their
+    capacity are the whole batch's, as the reference's (GSPMD keeps global
+    semantics): where the groups split evenly over the batch's shards a
+    rank runs its own groups; otherwise its tokens share groups with other
+    ranks, and the expert choices of every token are gathered over the
+    batch axes (integers: no gradient) so that each dispatch is ranked in
+    the global order.  Experts split over "model" run only this rank's
+    experts, on ``x`` entered into its part (``Shards.enter``), as the
+    router's logits of its experts' columns are; the combined outputs are
+    then partial sums, added over "model"."""
     b, s, d = x.shape
     t = b * s
-    n_shards = (1 if shards is None or shards.own_groups
-                else shards.batch_shards)
+    n_shards = 1 if shards is None else shards.batch_shards
     tg = t * n_shards                                       # global tokens
     g = cfg.moe_groups if tg % cfg.moe_groups == 0 else 1  # decode: t=B
     dt = x.dtype
@@ -178,17 +176,20 @@ def _moe_group(
 
 def _moe_spanning(xt, p, cfg, router_bits, w, shards, g) -> torch.Tensor:
     """This rank's tokens (T, D) of a batch whose ``g`` token groups do not
-    split evenly over its "data" ranks: the expert choices of every token
-    are gathered over "data" (in the global token order) and each dispatch
-    is ranked within its group and expert there; this rank runs its own
-    dispatches, its groups side by side on each expert's capacity axis."""
+    split evenly over its batch shards: the expert choices of every token
+    are gathered over the batch axes (in the global token order) and each
+    dispatch is ranked within its group and expert there; this rank runs
+    its own dispatches, its groups side by side on each expert's capacity
+    axis.  In the train step the gradient reaches ``xt`` and the router
+    through this rank's dispatches and gates (the ranking has none); the
+    gather runs again where the layer is recomputed."""
     t, d = xt.shape
     e = cfg.n_experts
     if w is None:
         w = {n: p[n].to(xt.dtype) for n in _EXPERT_WEIGHTS}
     top_w, top_i = _route(xt, p, cfg, router_bits, shards)
     k = top_i.shape[1]
-    every = shards.gather(top_i, "data", 0)                 # (T_global, k)
+    every = shards.gather(top_i, shards.batch_axes, 0)      # (T_global, k)
     tg = every.shape[0]
     per = tg // g                                           # group size
     group = torch.arange(tg, device=xt.device) // per

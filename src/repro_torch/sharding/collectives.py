@@ -1,35 +1,40 @@
-"""Explicit collectives over the axes of a ("data", "model")
-``DeviceMesh``, on local tensors, each with its backward: what the sharded
-train step and sharded serving run where the JAX package leaves the
-communication to GSPMD.
+"""Explicit collectives over the axes of a ("data", "model") or ("pod",
+"data", "model") ``DeviceMesh``, on local tensors, each with its backward:
+what the sharded train step and sharded serving run where the JAX package
+leaves the communication to GSPMD.
 
 A ``Shards`` is one rank's part of a sharded step: the rules, the global
-batch, this rank's rows of it, and
+batch (or, in the train step, one microbatch of it), the mesh axes that
+batch is split over (``act_batch``'s spec: "data", or ("pod", "data"),
+major axis first), this rank's rows of it, and
 
 - ``at_use``: a param leaf (or slice ``idx`` of a stacked one) as a layer
-  uses it, its ``embed`` (FSDP) dim all-gathered over "data" and its
-  tensor-parallel dims (``vocab``, ``mlp``, ``experts``) left local; the
-  JAX package's gather-at-use (``_gather_fsdp``), done inside the layer
-  loop so that one layer's gathered weights live at a time.  Its backward
-  reduce-scatters the gradient over "data" (sum), so a layer's weight
-  gradient lands as this rank's shard; where the batch does not split
-  over "data" every data rank runs the same rows, holds the whole
-  gradient, and keeps its own slice of it;
+  uses it, its ``embed`` (FSDP) dim all-gathered over every mesh axis its
+  placements shard it on ("data", or "pod" and "data", the minor axis
+  first) and its tensor-parallel dims (``vocab``, ``mlp``, ``experts``)
+  left local; the JAX package's gather-at-use (``_gather_fsdp``), done
+  inside the layer loop so that one layer's gathered weights live at a
+  time.  Its backward reduce-scatters the gradient back the same way
+  (sum), so a layer's weight gradient lands as this rank's shard; over an
+  axis the batch does not split every rank runs the same rows, holds the
+  whole gradient, and keeps its own slice of it;
 - ``local``: the range of an activation dim (``act_heads``,
   ``act_kv_heads``, ``act_dinner``) that this rank computes, or of the
-  ring slots (``cache_seq``, split over ("data", "model") in the batch-1
+  ring slots (``cache_seq``, split over every axis in the batch-1
   long-context layout) that it holds;
 - ``sum`` (all-reduce in f32 forward, the gradient passed unchanged
   backward) and ``enter`` (the identity forward, the gradient summed over
   "model" backward): Megatron's *g* and *f*.  ``sum`` ends a stretch of
   rank-local work whose result every rank then uses alike (an output
-  projection's partial sums); ``enter`` starts one, on every replicated
-  tensor at the point where it feeds rank-local work (an activation, or a
-  weight that rests whole on every rank but that a rank uses only in part,
-  such as its heads' columns of ``wq``), so that its gradient, a partial
-  sum on each rank, comes back whole;
-- ``gather``: all-gather over one axis forward, this rank's own slice of
-  the gradient backward (the MoE router's logits);
+  projection's partial sums, or the loss's token sums over the batch
+  axes); ``enter`` starts one, on every replicated tensor at the point
+  where it feeds rank-local work (an activation, or a weight that rests
+  whole on every rank but that a rank uses only in part, such as its
+  heads' columns of ``wq``), so that its gradient, a partial sum on each
+  rank, comes back whole;
+- ``gather``: all-gather over one axis or a tuple of them forward, this
+  rank's own slice of the gradient backward (the MoE router's logits,
+  the expert choices of a token group that spans batch shards);
 - ``max``: all-reduce max, without a gradient (its input detached);
 - ``dot``: a product whose contraction is split over "model" (an output
   projection's rows), each rank's part accumulated in f32 and summed
@@ -39,28 +44,29 @@ batch, this rank's rows of it, and
 
 Every collective over an axis of size 1 returns its input itself and every
 range over one is the whole dim, so on a mesh of one the sharded path runs
-the unsharded path's operations on the same tensors.  Each pair is a
-``torch.autograd.Function`` over ``torch.distributed``'s functional
-collectives on the mesh's sub-groups (``Rules.group``), with its backward
-written out: the backward that PyTorch registers for the functional
-collectives treats an all-reduce's replicated output as if each rank's
-gradient were a part of the whole, which makes every tensor-parallel
-gradient "model"-size times too large.  Without a gradient being recorded
-``enter`` is a plain return.  The in-place cache writes and the MoE
-scatter stay plain tensor ops on local tensors (no ``DTensor`` sharding
-propagation through the model).
+the unsharded path's operations on the same tensors.  A collective over a
+tuple of axes runs one per axis of size > 1 (the default group where they
+are every rank of the job), so no process group beyond the mesh's own is
+made.  Each pair is a ``torch.autograd.Function`` over
+``torch.distributed``'s functional collectives on the mesh's sub-groups
+(``Rules.group``), with its backward written out: the backward that
+PyTorch registers for the functional collectives treats an all-reduce's
+replicated output as if each rank's gradient were a part of the whole,
+which makes every tensor-parallel gradient "model"-size times too large.
+Without a gradient being recorded ``enter`` is a plain return.  The
+in-place cache writes and the MoE scatter stay plain tensor ops on local
+tensors (no ``DTensor`` sharding propagation through the model).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from .rules import Rules
 
-__all__ = ["Shards", "as_dtensor", "product_f32"]
-
-AXES = ("data", "model")
+__all__ = ["Shards", "as_dtensor", "batch_axes", "product_f32"]
 
 
 def _wait(t: torch.Tensor) -> torch.Tensor:
@@ -203,32 +209,40 @@ def as_dtensor(local: torch.Tensor, rules: Rules, logical, shape):
                               stride=tuple(stride))
 
 
+def _axes(axis) -> tuple:
+    """A mesh axis, a tuple of them or ``None`` as a tuple."""
+    if axis is None:
+        return ()
+    return axis if isinstance(axis, tuple) else (axis,)
+
+
+def batch_axes(rules: Rules, n: int) -> tuple:
+    """The mesh axes a batch of ``n`` rows is split over, major to minor
+    (``act_batch``'s spec; none where they do not divide ``n``)."""
+    spec = rules.spec(("act_batch",), (n,))
+    return _axes(spec[0] if spec else None)
+
+
 class Shards:
     """One rank's part of a sharded train, prefill or decode step over
-    ``rules.mesh`` (a ``DeviceMesh`` of axes "data" and "model") for a
-    global batch of ``batch`` rows.  ``own_groups``: each rank's rows form
-    their own MoE token groups (the train step, whose data ranks each run
-    their rows' microbatches); otherwise the groups are the global
-    batch's (serving)."""
+    ``rules.mesh`` (a ``DeviceMesh`` of axes ("data", "model") or ("pod",
+    "data", "model")) for a batch of ``batch`` rows: the global batch
+    (serving) or one of the train step's microbatches.  The rows split over
+    ``batch_axes`` (``act_batch``'s spec for ``batch`` rows, none where
+    they do not divide it), this rank's stretch ``rows`` at its index on
+    them, major axis first, as the reference's global array; MoE token
+    groups and their capacity are the whole batch's."""
 
-    def __init__(self, rules: Rules, batch: int, *, own_groups: bool = False):
-        names = tuple(rules.mesh.mesh_dim_names)
-        if names != AXES:
-            raise ValueError(f"the sharded step runs over a mesh of axes "
-                             f"{AXES}, not {names}")
+    def __init__(self, rules: Rules, batch: int):
         self.rules = rules
         self.mesh = rules.mesh
         self.batch = batch
-        self.own_groups = own_groups
-        spec = rules.spec(("act_batch",), (batch,))
-        axis = spec[0] if spec else None
-        if isinstance(axis, tuple) or axis not in (None, "data"):
-            raise ValueError(f"act_batch over {axis!r}: the sharded step "
-                             "splits the batch over 'data' only")
-        self.batch_shards = self.size(axis) if axis else 1
-        self.batch_index = self.rank(axis) if axis else 0
+        self.batch_axes = batch_axes(rules, batch)
+        self.batch_shards = math.prod(self.size(a) for a in self.batch_axes)
+        self.batch_index = self.index(self.batch_axes)
         m = batch // self.batch_shards
         self.rows = (self.batch_index * m, (self.batch_index + 1) * m)
+        self.fsdp_axes = _axes(rules.table.get("embed"))
 
     # -- the mesh ---------------------------------------------------------------
     def size(self, axis: str) -> int:
@@ -239,10 +253,10 @@ class Shards:
 
     def index(self, axis) -> int:
         """This rank's index along ``axis``, a mesh axis or a tuple of
-        them; over a tuple data-major, the order of ``Rules.placements``
-        and ``models.params.shard_params``."""
+        them; over a tuple major axis first, the order of
+        ``Rules.placements`` and ``models.params.shard_params``."""
         idx = 0
-        for a in (axis if isinstance(axis, tuple) else (axis,)):
+        for a in _axes(axis):
             idx = idx * self.size(a) + self.rank(a)
         return idx
 
@@ -274,21 +288,30 @@ class Shards:
         """The process groups one reduction over ``axis`` (a mesh axis or a
         tuple of them) runs on, one after another: none for axes of size
         1, the default group where the axes are every rank of the job."""
-        live = [a for a in (axis if isinstance(axis, tuple) else (axis,))
-                if self.size(a) > 1]
-        if len(live) > 1:
-            import torch.distributed as dist
-            if self.mesh.size() == dist.get_world_size():
-                return [dist.group.WORLD]
+        live = [a for a in _axes(axis) if self.size(a) > 1]
+        if (len(live) > 1 and math.prod(self.size(a) for a in live)
+                == self.mesh.size() and self._whole_job()):
+            return [self._world()]
         return [self._group(a) for a in live]
+
+    def _whole_job(self) -> bool:
+        import torch.distributed as dist
+        return self.mesh.size() == dist.get_world_size()
+
+    def _world(self):
+        import torch.distributed as dist
+        return dist.group.WORLD
 
     def sum(self, t: torch.Tensor, axis) -> torch.Tensor:
         """The sum of ``t`` over the ranks along ``axis`` (a mesh axis or a
-        tuple of them), added in f32 and returned in ``t``'s dtype; its
-        gradient passes to every rank's ``t`` unchanged."""
+        tuple of them), added in f32 (an integer ``t`` as it is) and
+        returned in ``t``'s dtype; its gradient passes to every rank's
+        ``t`` unchanged."""
         groups = self._groups(axis)
         if not groups:
             return t
+        if not t.is_floating_point():           # a count: exact, no gradient
+            return self._all_reduce(t, "sum", groups)
         return _Reduce.apply(t.float(), self, groups).to(t.dtype)
 
     def enter(self, t: torch.Tensor, axis: str = "model") -> torch.Tensor:
@@ -322,45 +345,57 @@ class Shards:
         round every element again, which a bf16 recurrence carries on.)"""
         return self.sum(product_f32(x, w), "model").to(x.dtype)
 
-    def gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-        """The ranks' ``t`` along ``axis`` concatenated on ``dim``, in the
-        ranks' order on the axis; the gradient of the result, which every
-        rank holds whole, gives each rank its own slice."""
-        n = self.size(axis)
-        if n == 1:
-            return t
-        return _Gather.apply(t, self, self._group(axis), n, self.rank(axis),
-                             dim)
+    def gather(self, t: torch.Tensor, axis, dim: int) -> torch.Tensor:
+        """The ranks' ``t`` along ``axis`` (a mesh axis or a tuple of them)
+        concatenated on ``dim``, in the ranks' order on the axes, major
+        axis first: over a tuple one gather an axis, the minor axis first.
+        The gradient of the result, which every rank holds whole, gives
+        each rank its own slice."""
+        for a in reversed(_axes(axis)):
+            n = self.size(a)
+            if n > 1:
+                t = _Gather.apply(t, self, self._group(a), n, self.rank(a),
+                                  dim)
+        return t
 
     # -- params at use ----------------------------------------------------------
     def at_use(self, leaf, idx: Optional[int] = None) -> torch.Tensor:
         """Param ``leaf`` (slice ``idx`` of its leading "layers" dim) as a
-        layer uses it: a ``DTensor``'s local shard with its dim over "data"
-        gathered (``gather_param``); a plain tensor as it is."""
+        layer uses it: a ``DTensor``'s local shard with its dim over the
+        FSDP axes (``embed``'s) gathered (``gather_param``); a plain tensor
+        as it is."""
         from torch.distributed.tensor import DTensor, Shard
         if not isinstance(leaf, DTensor):
             return leaf if idx is None else leaf[idx]
         local = leaf.to_local()
         if idx is not None:
             local = local[idx]
-        place = leaf.placements[AXES.index("data")]
-        n = self.size("data")
-        if isinstance(place, Shard) and n > 1:
-            local = self.gather_param(local, place.dim - (0 if idx is None
-                                                          else 1))
-        return local
+        names = tuple(self.mesh.mesh_dim_names)
+        axes, dim = [], None
+        for a in self.fsdp_axes:
+            place = leaf.placements[names.index(a)]
+            if isinstance(place, Shard) and self.size(a) > 1:
+                axes.append(a)
+                dim = place.dim - (0 if idx is None else 1)
+        return self.gather_param(local, dim, tuple(axes)) if axes else local
 
-    def gather_param(self, local: torch.Tensor, dim: int) -> torch.Tensor:
-        """A param shard gathered over "data" on ``dim``.  Its gradient is
-        reduce-scattered back where the data ranks took other rows; where
-        the batch does not split over "data" each rank computed the whole
-        gradient from the same rows, and keeps its own slice (a sum would
-        count it once a rank)."""
-        group, n = self._group("data"), self.size("data")
-        if self.batch_shards == 1:
-            return _Gather.apply(local, self, group, n, self.rank("data"),
-                                 dim)
-        return _GatherParam.apply(local, self, group, n, dim)
+    def gather_param(self, local: torch.Tensor, dim: int,
+                     axes: tuple) -> torch.Tensor:
+        """A param shard gathered on ``dim`` over ``axes`` (major to
+        minor), one axis at a time, the minor first, so the blocks lie in
+        the order of the leaf's placements.  Its gradient comes back the
+        same way: reduce-scattered over an axis whose ranks took other rows
+        of the batch; over one they did not (the batch does not split
+        there) each rank computed the whole gradient from the same rows,
+        and keeps its own slice (a sum would count it once a rank)."""
+        for a in reversed(axes):
+            group, n = self._group(a), self.size(a)
+            if a in self.batch_axes:
+                local = _GatherParam.apply(local, self, group, n, dim)
+            else:
+                local = _Gather.apply(local, self, group, n, self.rank(a),
+                                      dim)
+        return local
 
     def lookup(self, table: torch.Tensor, tokens: torch.Tensor
                ) -> torch.Tensor:

@@ -12,24 +12,24 @@ sees one half-updated.
 each with its spec (``Rules.spec``) as the attribute ``spec``, for every
 input of a cell: what the reference's ``ShapeDtypeStruct``s with their
 shardings are.  ``build_train_step(..., rules=)`` over a ("data",
-"model") ``DeviceMesh`` shards the step as GSPMD shards the reference's
-(but for its microbatches: each data rank's rows are its own;
-``build_train_step``): the state rests as ``DTensor`` shards
-(``shard_state``) and each rank takes its rows of the global batch.
-Under ``dp_only`` rules it is
-data-parallel (ZeRO): a rank gathers the whole param tree once, runs
-``accumulate_grads`` on its rows and reduce-scatters the gradients to the
-params' placements.  Under the tensor-parallel rules (``make_rules(mesh)``)
-a rank runs ``loss_fn`` with ``shards`` on its param shards: each layer's
-weights gathered over "data" at use, heads, MLP, experts, mamba's inner
-dim and the vocab split over "model", the collectives explicit with their
-backwards (``sharding.collectives``), so that each gradient arrives as the
-rank's shard.  Either way the update runs on the shards, with the gradient
-norm and the int8 scales reduced over every rank.  ``build_prefill_step`` and
-``build_decode_step`` with ``rules`` over a ("data", "model")
-``DeviceMesh`` serve sharded: each rank runs its rows of the global batch
-on its param and cache shards, the tensor- and expert-parallel
-collectives explicit in ``models.lm``.
+"model") or ("pod", "data", "model") ``DeviceMesh`` shards the step as
+GSPMD shards the reference's: the state rests as ``DTensor`` shards
+(``shard_state``), the global batch splits into ``accum`` microbatches,
+and each rank runs its rows of each (``act_batch``'s split), the
+microbatch's loss and MoE token groups the whole microbatch's.  Under
+``dp_only`` rules it is data-parallel (ZeRO): a rank gathers the whole
+param tree once, runs ``accumulate_grads`` on its rows and reduce-scatters
+the gradients to the params' placements.  Under the tensor-parallel rules
+(``make_rules(mesh)``) a rank runs ``loss_fn`` with ``shards`` on its param
+shards: each layer's weights gathered over the FSDP axes at use, heads,
+MLP, experts, mamba's inner dim and the vocab split over "model", the
+collectives explicit with their backwards (``sharding.collectives``), so
+that each gradient arrives as the rank's shard.  Either way the update
+runs on the shards, with the gradient norm and the int8 scales reduced
+over every rank.  ``build_prefill_step`` and ``build_decode_step`` with
+``rules`` over such a ``DeviceMesh`` serve sharded: each rank runs its rows
+of the global batch on its param and cache shards, the tensor- and
+expert-parallel collectives explicit in ``models.lm``.
 """
 from __future__ import annotations
 
@@ -210,27 +210,6 @@ def shard_state(state: TrainState, cfg: ModelConfig,
                       ef=None if state.ef is None else put(state.ef))
 
 
-def batch_axes(rules: Rules, n: int) -> tuple:
-    """The mesh axes a global batch of ``n`` rows is split over, major to
-    minor (``act_batch``'s spec; none where they do not divide ``n``)."""
-    spec = rules.spec(("act_batch",), (n,))
-    axis = spec[0] if spec else None
-    return () if axis is None else (axis if isinstance(axis, tuple)
-                                    else (axis,))
-
-
-def _batch_shard(rules: Rules, mesh, n: int) -> tuple:
-    """This rank's rows of a global batch of ``n``: (start, stop, the mesh
-    axes the batch is split over, their product)."""
-    axes = batch_axes(rules, n)
-    idx, shards = 0, 1
-    for a in axes:         # major to minor, as the reference's global array
-        idx = idx * rules.sizes[a] + mesh.get_local_rank(a)
-        shards *= rules.sizes[a]
-    m = n // shards
-    return idx * m, (idx + 1) * m, axes, shards
-
-
 def _local(t: torch.Tensor) -> torch.Tensor:
     """A ``DTensor``'s local shard; a plain tensor itself."""
     return t.to_local() if hasattr(t, "to_local") else t
@@ -260,27 +239,34 @@ def accumulate_grads(cfg: ModelConfig, params, batch, *, accum: int = 1,
     turn, the gradients summed in ``accum_dtype`` and averaged, as the
     reference's scanned accumulation.  Returns (grads, metrics): ``loss``,
     and ``tokens`` with ``accum == 1`` only, as there.  With ``shards``
-    (``sharding.collectives.Shards``), one rank's part of the sharded
-    step: ``batch`` is its rows, ``params`` its ``DTensor`` shards, and each
-    gradient its local shard (summed over "data" where the leaf is
-    gathered over "data" at use)."""
-    if accum == 1:
-        loss, metrics, grads = _value_and_grad(cfg, params, batch, remat,
-                                               shards)
-        return grads, metrics
+    (``sharding.collectives.Shards`` of one microbatch, ``shards.batch``
+    rows), one rank's part of the sharded step: ``batch`` is the global
+    batch, each microbatch runs this rank's rows of it (``shards.rows``)
+    with the whole microbatch's loss, ``params`` are its ``DTensor``
+    shards, and each gradient is its local shard of the rank's part of the
+    gradient (summed over the FSDP axes where the leaf is gathered there at
+    use)."""
     n = next(iter(batch.values())).shape[0]
     if n % accum:
         raise ValueError(f"batch {n} does not split into {accum} "
                          "microbatches")
     m = n // accum
+    lo, hi = (0, m) if shards is None else shards.rows
+
+    def micro(i: int) -> dict:
+        return {k: v[i * m + lo:i * m + hi] for k, v in batch.items()}
+
+    if accum == 1:
+        loss, metrics, grads = _value_and_grad(cfg, params, micro(0), remat,
+                                               shards)
+        return grads, metrics
     g_acc = tree_map(lambda p: torch.zeros(_local(p).shape,
                                            dtype=accum_dtype,
                                            device=p.device), params)
     l_acc = torch.zeros((), dtype=torch.float32,
                         device=tree_leaves(params)[0].device)
     for i in range(accum):
-        mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-        loss, _, g = _value_and_grad(cfg, params, mb, remat, shards)
+        loss, _, g = _value_and_grad(cfg, params, micro(i), remat, shards)
         # in place: the sums (and the quotients below) are the same, and
         # no second copy of the gradients lives beside the first
         tree_map(lambda a, b: a.add_(b.to(a.dtype)), g_acc, g)
@@ -310,44 +296,52 @@ def build_train_step(
     holds their summed gradients.  Metrics (0-d tensors on the device):
     ``loss``, ``tokens`` (accum 1 only), ``grad_norm`` and ``lr``.
 
-    With ``rules`` over a ("data", "model") ``DeviceMesh`` the step is
-    sharded: it takes a state of ``DTensor`` shards laid out by the rules
-    (``init_train_state(..., rules=)``) and the global batch, the same on
-    every rank.  Each rank runs its rows of the batch (``act_batch``'s
-    spec) as its own ``accum`` microbatches, its MoE token groups its
-    rows', so a mesh with D data shards computes what the unsharded step
-    computes with ``D * accum`` microbatches (the reference's GSPMD step
-    keeps ``accum`` microbatches of the global batch: the two differ where
-    a token group would span data ranks or rows carry different label
-    counts).  Where the batch does not split over "data", every data rank
-    runs all of it as ``accum`` microbatches.
+    With ``rules`` over a ("data", "model") or ("pod", "data", "model")
+    ``DeviceMesh`` the step is sharded: it takes a state of ``DTensor``
+    shards laid out by the rules (``init_train_state(..., rules=)``) and
+    the global batch, the same on every rank, and computes the reference's
+    step (GSPMD's semantics).  The global batch splits into ``accum``
+    microbatches, microbatch ``i`` being global rows [i B/accum, (i+1)
+    B/accum); a rank runs its rows of each, split over the batch's mesh
+    axes (``act_batch``'s spec for B/accum rows, major axis first; all of
+    them on every rank where the axes do not divide it).  Each
+    microbatch's loss is its summed token loss over its label count, both
+    summed over the batch axes, and its MoE token groups and capacity are
+    the whole microbatch's (a group that spans ranks ranks its dispatches
+    on the gathered expert choices), so with uneven label counts or
+    spanning groups the step is still the unsharded step with the same
+    ``accum``.
 
-    - ``dp_only`` rules: data-parallel.  A rank gathers the whole param
-      tree once and runs ``accumulate_grads`` on it; the gradients are
-      summed over the ranks into each param's shards (a reduce-scatter).
+    - ``dp_only`` rules: data-parallel, the batch over ("data", "model")
+      (on a multi-pod mesh every pod runs the same rows, and "pod" carries
+      only FSDP, as the reference's rules say).  A rank gathers the whole
+      param tree once and runs ``accumulate_grads`` on it with a
+      ``Shards`` that only sums the loss; the gradients, each the rank's
+      rows' part of the whole, are summed over the batch axes into each
+      param's shards (a reduce-scatter).
     - the tensor-parallel rules (``make_rules(mesh)``): a rank runs
       ``loss_fn`` with ``shards`` (``sharding.collectives.Shards``) on its
       param shards.  Inside the layer loop each layer's weights are
-      gathered over "data" at use, their "model" shards left local; heads
-      (attention, whisper's cross-attention, rwkv6's time mix), the MLP's
-      and channel mix's hidden dim, the experts, mamba's inner dim and the
-      vocab are split over "model" where "model" divides them, with the
-      tensor- and expert-parallel collectives explicit and each with its
-      backward.  A weight gathered over "data" gets its gradient
-      reduce-scattered back over "data"; a weight that rests replicated
-      over "model" and feeds rank-local work has its gradient summed over
-      "model" there (``Shards.enter``), and one used alike on every rank
-      (norm scales) holds the whole gradient already, so no leaf is summed
-      over "model" again.  A leaf replicated over "data" has its gradient
-      all-reduced over "data" after the microbatches.
+      gathered over the FSDP axes ("data", or "pod" and "data") at use,
+      their "model" shards left local; heads (attention, whisper's
+      cross-attention, rwkv6's time mix), the MLP's and channel mix's
+      hidden dim, the experts, mamba's inner dim and the vocab are split
+      over "model" where "model" divides them, with the tensor- and
+      expert-parallel collectives explicit and each with its backward.  A
+      weight gathered over the FSDP axes gets its gradient reduce-scattered
+      back over them; a weight that rests replicated over "model" and feeds
+      rank-local work has its gradient summed over "model" there
+      (``Shards.enter``), and one used alike on every rank (norm scales)
+      holds the whole gradient already, so no leaf is summed over "model"
+      again.  A leaf replicated over a batch axis has its gradient
+      all-reduced over it after the microbatches (``sharded_grads``).
 
-    Then the gradients are divided by the number of batch shards, the loss
-    averaged and ``tokens`` summed over them (the loss is the same on every
-    rank of "model").  AdamW and the compression run on the shards, their
-    gradient norm and int8 scales global over every rank (``DTensor``'s
-    reductions: a leaf replicated over an axis counts once), and the
-    per-leaf arithmetic is the unsharded step's, so a mesh of one gives
-    its result bit for bit."""
+    The loss (and, with ``accum == 1``, ``tokens``) is the reference's,
+    the same on every rank.  AdamW and the compression run on the shards,
+    their gradient norm and int8 scales global over every rank
+    (``DTensor``'s reductions: a leaf replicated over an axis counts once),
+    and the per-leaf arithmetic is the unsharded step's, so a mesh of one
+    gives its result bit for bit."""
 
     def train_step(state: TrainState, batch):
         dev = state.opt.step.device
@@ -386,35 +380,30 @@ def build_train_step(
         from torch.distributed.tensor import DTensor, Partial, Replicate
         from torch.distributed.tensor.experimental import (
             implicit_replication)
+
+        from ..sharding.collectives import Shards
         dev = state.opt.step.device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         n = next(iter(batch.values())).shape[0]
-        lo, hi, axes, shards = _batch_shard(rules, mesh, n)
-        rows = {k: v[lo:hi] for k, v in batch.items()}
         # the whole param tree once, gathered (the reference gathers each
-        # layer's weights at use inside its scan: the same values)
+        # layer's weights at use inside its scan: the same values); on it
+        # a Shards only sums the loss over the batch axes
         full = tree_map(lambda p: p.full_tensor().detach(), state.params)
-        grads, metrics = accumulate_grads(cfg, full, rows, accum=accum,
+        shards = Shards(rules, n // accum)
+        grads, metrics = accumulate_grads(cfg, full, batch, accum=accum,
                                           remat=remat,
-                                          accum_dtype=accum_dtype)
+                                          accum_dtype=accum_dtype,
+                                          shards=shards)
         del full
         # per mesh dim: a sum over the ranks that took other rows, or the
         # same value on every rank (a sum over one rank is the value itself)
-        partial = [Partial() if a in axes and rules.sizes[a] > 1
-                   else Replicate() for a in mesh.mesh_dim_names]
-
-        def summed(t, placements=None):
-            d = DTensor.from_local(t, mesh, partial, run_check=False)
-            if placements is None:
-                return d.full_tensor()
-            return d.redistribute(mesh, placements)   # reduce-scatter
-
+        partial = [Partial() if a in shards.batch_axes
+                   and rules.sizes[a] > 1 else Replicate()
+                   for a in mesh.mesh_dim_names]
         with use_rules(rules), implicit_replication():
-            k = torch.tensor(shards, dtype=torch.float32, device=dev)
-            grads = tree_map(lambda g, p: summed(g, p.placements)
-                             / k.to(g.dtype), grads, state.params)
-            metrics = {name: summed(v) / k if name == "loss" else summed(v)
-                       for name, v in metrics.items()}
+            grads = tree_map(lambda g, p: DTensor.from_local(
+                g, mesh, partial, run_check=False).redistribute(
+                    mesh, p.placements), grads, state.params)
         return update(state, grads, metrics)
 
     def tp_step(state: TrainState, batch):
@@ -433,47 +422,39 @@ def sharded_grads(cfg: ModelConfig, params, batch, rules: Rules, *,
                   accum_dtype: torch.dtype = torch.float32):
     """The tensor-parallel step's gradient and metrics on this rank:
     ``params`` its ``DTensor`` shards under ``rules`` (not ``dp_only``),
-    ``batch`` the global batch.  The rank runs its rows (``act_batch``
-    over "data") as ``accum`` microbatches through ``loss_fn`` with
-    ``shards`` (``sharding.collectives.Shards``, its own MoE token groups);
-    each gradient comes back as its shard (a leaf gathered over "data" at
-    use summed over "data" by the gather's backward, a leaf replicated over
-    "data" all-reduced over it here) and is divided by the number of batch
-    shards.  Returns (grads, ``DTensor``s at the params' placements;
-    metrics, the loss averaged and ``tokens`` summed over the batch
-    shards)."""
+    ``batch`` the global batch.  The rank runs its rows of each of the
+    ``accum`` microbatches through ``loss_fn`` with ``shards``
+    (``sharding.collectives.Shards`` of one microbatch: the whole
+    microbatch's loss and MoE token groups); each gradient comes back as
+    its shard of the rank's part of the whole, a leaf gathered over the
+    FSDP axes at use summed over them by the gather's backward and a leaf
+    replicated over a batch axis all-reduced over it here.  Returns
+    (grads, ``DTensor``s at the params' placements; metrics, the
+    reference's, the same on every rank)."""
     from torch.distributed.tensor import DTensor, Shard
 
-    from ..sharding.collectives import Shards, _all_reduce
+    from ..sharding.collectives import Shards
     mesh = _device_mesh(rules)
     _check_shards(params, param_logical_axes(cfg), rules, "params")
     n = next(iter(batch.values())).shape[0]
-    shards = Shards(rules, n, own_groups=True)
-    lo, hi = shards.rows
-    rows = {k: v[lo:hi] for k, v in batch.items()}
-    grads, metrics = accumulate_grads(cfg, params, rows, accum=accum,
+    shards = Shards(rules, n // accum)
+    grads, metrics = accumulate_grads(cfg, params, batch, accum=accum,
                                       remat=remat, accum_dtype=accum_dtype,
                                       shards=shards)
-    k = shards.batch_shards
-    groups = [rules.group("data")] if k > 1 else []
-    kt = torch.tensor(k, dtype=torch.float32,
-                      device=tree_leaves(grads)[0].device)
+    names = tuple(mesh.mesh_dim_names)
 
     def whole(g, p):
+        # a leaf gathered over an axis at use had its gradient summed
+        # there by the gather's backward
+        over = tuple(a for a in shards.batch_axes if not isinstance(
+            p.placements[names.index(a)], Shard))
+        groups = shards._groups(over)
         if groups:
-            # a leaf gathered over "data" at use had its gradient summed
-            # there by the gather's backward
-            if not isinstance(p.placements[0], Shard):
-                g = _all_reduce(g.float(), "sum", groups).to(g.dtype)
-            g = g / kt.to(g.dtype)
+            g = shards._all_reduce(g.float(), "sum", groups).to(g.dtype)
         return DTensor.from_local(g, mesh, p.placements, run_check=False,
                                   shape=p.shape, stride=p.stride())
 
-    grads = tree_map(whole, grads, params)
-    metrics = {name: _all_reduce(v, "sum", groups) for name, v in
-               metrics.items()}
-    metrics["loss"] = metrics["loss"] / kt
-    return grads, metrics
+    return tree_map(whole, grads, params), metrics
 
 
 # ---------------------------------------------------------------------------
@@ -518,14 +499,15 @@ def _serving_shards(cfg: ModelConfig, rules: Rules, params, caches,
 def build_prefill_step(cfg: ModelConfig, rules: Optional[Rules] = None):
     """Returns ``prefill_step(params, batch, caches) -> (logits, caches)``.
 
-    With ``rules`` over a ("data", "model") ``DeviceMesh`` the step is
-    sharded: it takes params and caches as ``DTensor`` shards
-    (``models.params.shard_params``, ``init_cache(..., rules=)``) and the
-    global batch, the same on every rank; each rank runs its rows
-    (``act_batch``) on its shards, the collectives explicit
+    With ``rules`` over a ("data", "model") or ("pod", "data", "model")
+    ``DeviceMesh`` the step is sharded: it takes params and caches as
+    ``DTensor`` shards (``models.params.shard_params``, ``init_cache(...,
+    rules=)``) and the global batch, the same on every rank; each rank runs
+    its rows (``act_batch``) on its shards, the collectives explicit
     (``models.lm``), and the logits come back as the ``DTensor`` of the
     global ones.  Every configuration serves on a mesh of any sizes.  Under
-    ``make_rules(mesh)`` the batch is split over "data"; over "model" the
+    ``make_rules(mesh)`` the batch and the params' FSDP dim are split over
+    "data" (or ("pod", "data"), pod-major); over "model" the
     query and kv heads (attention, whisper's cross-attention and its
     ``xk``/``xv`` caches, rwkv6's time mix), the MLP's and the channel
     mix's hidden dim, the experts, mamba's inner dim (and its ``conv``/
@@ -533,8 +515,8 @@ def build_prefill_step(cfg: ModelConfig, rules: Optional[Rules] = None):
     by kv heads, or by ``head_dim`` where the kv heads do not divide.
     Under the batch-1 long-context rules (``make_rules(mesh,
     batch_divisible=False, seq_sharded_decode=True)``) every rank takes
-    the whole batch, the KV caches are split by ring slots over ("data",
-    "model") and decode combines the ranks' softmax over them; the rest
+    the whole batch, the KV caches are split by ring slots over every
+    mesh axis and decode combines the ranks' softmax over them; the rest
     splits over "model" as above."""
     if rules is None:
         def prefill_step(params, batch, caches):

@@ -10,6 +10,13 @@ and run the reduced config of each arch at short sequences
   tensors (the unsharded step, at the global shapes), divided by the
   devices that share the work (256 for olmo's ``dp_only`` train cell, 512
   for gemma's on two pods);
+- ``collectives``: a ``dp_only`` train cell counts the data-parallel
+  scheme it runs (every sharded param leaf all-gathered whole at use);
+  every other cell, train or serving, on either mesh, records what
+  ``shards_collectives`` counts from the port's own step (its byte
+  counts are held against the collectives on ``gloo`` ranks in
+  ``test_torch_pod_dryrun.py``), "model" all-reduces and gathers at use
+  among them;
 - the record has the reference's keys (read from
   ``src/repro/launch/dryrun.py`` without importing it, since importing it
   sets ``XLA_FLAGS``) plus ``derived``; what only a compiler gives is null;
@@ -114,6 +121,9 @@ def _real_flops(arch, shape_name, settings) -> int:
     ("gemma_7b", "train_4k", True, 512),
     ("h2o_danube_1p8b", "prefill_32k", False, 256),
     ("phi3_medium_14b", "decode_32k", True, 512),
+    ("qwen3_moe_235b_a22b", "prefill_32k", True, 512),
+    ("rwkv6_1p6b", "decode_32k", True, 512),
+    ("jamba_v01_52b", "long_500k", True, 512),
 ])
 def test_run_cell(reduced, arch, shape_name, multi_pod, shards):
     rec = dryrun.run_cell(arch, shape_name, multi_pod=multi_pod, save=False)
@@ -144,9 +154,17 @@ def test_run_cell(reduced, arch, shape_name, multi_pod, shards):
                                                settings) / shards
     params = specs["state"].params if shape.step == "train" else \
         specs["params"]
-    assert rec["collectives"]["all-gather"] == sum(
-        math.prod(p.shape) * p.element_size() for p in tree_leaves(params)
-        if any(p.spec))
+    if settings.get("dp_only"):
+        assert rec["collectives"]["all-gather"] == sum(
+            math.prod(p.shape) * p.element_size()
+            for p in tree_leaves(params) if any(p.spec))
+    else:
+        counted = dryrun.shards_collectives(TC.get_reduced(arch), rules,
+                                            shape, settings)
+        assert rec["collectives"] == {k: v for k, v in counted.items()
+                                      if v}
+        assert rec["collectives"]["all-reduce"] > 0       # over "model"
+        assert rec["collectives"]["all-gather"] > 0       # weights at use
     if shape.step == "train":
         assert rec["collectives"]["reduce-scatter"] > 0
         assert rec["memory"]["alias_bytes"] == sum(

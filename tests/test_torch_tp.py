@@ -64,8 +64,8 @@ the first run:
 - on a "model" axis larger than 1 the train step runs too (reduced
   olmo-1b, one step in f32 compute): its loss within 1e-6 and its
   gradient norm within 1e-5 (relative) of the unsharded port's step with
-  as many microbatches as the mesh has data shards
-  (``test_torch_tp_train.py`` holds the step leaf by leaf).
+  the same one microbatch (``test_torch_tp_train.py`` holds the step leaf
+  by leaf).
 
 The spawns run in a thread while the parent makes the JAX references
 (about 100 s in all on one worker).
@@ -291,7 +291,7 @@ def serve_ranks(rank, world, out, shape, leaves, replay):
         for arch in ARCHS for dtype in DTYPES}
     res["moe_layer"] = _moe_layer(rules, leaves[MOE])
     if shape[1] > 1:
-        res["train"] = _train_metrics(rules, shape[0])
+        res["train"] = _train_metrics(rules)
     if shape == (1, 1):
         from repro_torch.convert import lm_params_from_arrays
         from repro_torch.models.params import shard_params
@@ -305,17 +305,16 @@ def serve_ranks(rank, world, out, shape, leaves, replay):
     return res
 
 
-def _train_metrics(rules, accum: int) -> dict:
-    """One f32 train step of reduced olmo-1b: sharded under ``rules``, or
-    unsharded (``rules`` None) with ``accum`` microbatches."""
+def _train_metrics(rules) -> dict:
+    """One f32 train step of reduced olmo-1b, one microbatch: sharded under
+    ``rules``, or unsharded (``rules`` None)."""
     from repro_torch.data import TokenPipeline
     from repro_torch.models import lm as TLM
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import build_train_step, init_train_state
     cfg, opt = get_reduced("olmo_1b"), AdamWConfig()
     state = init_train_state(cfg, 0, opt_cfg=opt, device="cpu", rules=rules)
-    step = build_train_step(cfg, opt, rules=rules,
-                            accum=1 if rules is not None else accum)
+    step = build_train_step(cfg, opt, rules=rules)
     with mock.patch.object(TLM, "COMPUTE_DTYPE", torch.float32):
         _, m = step(state, TokenPipeline(cfg, B, 32, seed=0).batch_at(0))
     return {k: float(v) for k, v in m.items()}
@@ -419,7 +418,7 @@ def runs(tmp_path_factory, one_thread):
                     port[arch, dtype] = _port_run(
                         arch, leaves[arch], dtype, replay=replay.get(arch)
                         if dtype == "bfloat16" else None)
-        train = {d: _train_metrics(None, d) for d in (1, 2)}
+        train = _train_metrics(None)
         return {"ranks": ranks.result(), "jax": jax_ref, "port": port,
                 "train": train}
 
@@ -588,7 +587,7 @@ def test_recurrent_shards_are_split_where_the_rules_say(runs):
 @pytest.mark.parametrize("shape", [s for s in MESHES if s[1] > 1],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_train_step_runs_on_the_model_axis(runs, shape):
-    want = runs["train"][shape[0]]
+    want = runs["train"]
     for got in runs["ranks"][shape]:
         m = got["train"]
         assert abs(m["loss"] - want["loss"]) <= 1e-6 * abs(want["loss"])

@@ -4,9 +4,10 @@ and ``train.sharded_grads`` on meshes (1, 2) and (2, 2), for every
 configuration, against the port's unsharded step and the JAX package's
 unsharded ``build_train_step(cfg, None, opt)``.
 
-A mesh of D data shards runs each data rank's rows as its own
-microbatches (``build_train_step``'s docstring), so its references are the
-unsharded steps with D microbatches: accum 1 on (1, 2), accum 2 on (2, 2).
+The sharded step is the reference's (``build_train_step``'s docstring):
+each microbatch's loss and MoE token groups are the whole microbatch's
+wherever its rows lie, so the references on both meshes are the unsharded
+steps with the same ``accum`` (1).
 
 One spawn per mesh (``torch_ranks.spawn``, one torch thread a rank),
 running in a thread while the parent makes the references.  Every rank
@@ -61,6 +62,7 @@ ARCHS = ("olmo_1b", "gemma_7b", "h2o_danube_1p8b", "phi3_medium_14b",
          "jamba_v01_52b", "rwkv6_1p6b", "whisper_small")
 RANDOMIZED = ("jamba_v01_52b", "rwkv6_1p6b", "whisper_small")
 MESHES = ((1, 2), (2, 2))
+ACCUM = 1
 B, S = 4, 32
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 LOSS_RTOL = 1e-6
@@ -180,9 +182,13 @@ def tp_ranks(rank, world, out, shape, arrays, archs):
 
 
 # -- the references -------------------------------------------------------------
-def jax_run(arrays, arch, accum: int) -> dict:
-    """The JAX package's unsharded step (f32 compute) from the same state:
-    its loss, gradient (read from ``mu``), metrics and leaves."""
+def jax_run(arrays, arch, accum: int, *, masked: bool = False,
+            edit=None) -> dict:
+    """The JAX package's unsharded step (f32 compute) from the same state,
+    on ``batch_of(cfg, B, masked)`` with the config's fields ``edit``
+    replaced: its loss, gradient (read from ``mu``), metrics and leaves."""
+    import dataclasses
+
     import jax
     import jax.numpy as jnp
 
@@ -190,11 +196,12 @@ def jax_run(arrays, arch, accum: int) -> dict:
     from repro import train as JT
     from repro.configs import get_reduced as jax_get_reduced
     from repro.models import lm as JLM
-    jcfg = jax_get_reduced(arch)
+    jcfg = dataclasses.replace(jax_get_reduced(arch), **(edit or {}))
     jopt = JO.AdamWConfig(**OPT)
     jp = jax.tree.map(jnp.asarray, arrays)
     js = JT.TrainState(params=jp, opt=JO.adamw_init(jp, jopt), ef=None)
-    batch = {k: jnp.asarray(v) for k, v in batch_of(get_reduced(arch)).items()}
+    cfg = dataclasses.replace(get_reduced(arch), **(edit or {}))
+    batch = {k: jnp.asarray(v) for k, v in batch_of(cfg, B, masked).items()}
     with mock.patch.object(JLM, "COMPUTE_DTYPE", jnp.float32):
         js2, jm = jax.jit(JT.build_train_step(jcfg, None, jopt,
                                               accum=accum))(js, batch)
@@ -237,7 +244,7 @@ def runs(tmp_path_factory, one_thread):
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(spawns)
-        port, jx = references(arrays, ARCHS, sorted({s[0] for s in MESHES}))
+        port, jx = references(arrays, ARCHS, [ACCUM])
         return {"ranks": ranks.result(), "port": port, "jax": jx,
                 "arrays": arrays}
 
@@ -302,22 +309,20 @@ def _id(case):
 @pytest.mark.parametrize("case", _cases(), ids=_id)
 def test_sharded_step_equals_the_unsharded_port(runs, case):
     shape, arch = case
-    got, want = runs["ranks"][shape][arch], runs["port"][arch, shape[0]]
+    got, want = runs["ranks"][shape][arch], runs["port"][arch, ACCUM]
     tol = GRAD_TOL
     assert abs(float(got["loss"]) - float(want["loss"])) <= (
         LOSS_RTOL * abs(float(want["loss"])))
     close_leaves(got["grads"], want["grads"], tol, "grads")
     gm, wm = got["metrics"], want["metrics"]
-    # a data rank runs one microbatch: the sharded step counts ``tokens``
-    # where the unsharded step with D microbatches does not
-    assert set(gm) == {"loss", "tokens", "grad_norm", "lr"}
+    # one microbatch: both steps count ``tokens``, the whole batch's
+    assert set(gm) == set(wm) == {"loss", "tokens", "grad_norm", "lr"}
     assert abs(float(gm["loss"]) - float(wm["loss"])) <= (
         LOSS_RTOL * abs(float(wm["loss"])))
     assert abs(float(gm["grad_norm"]) - float(wm["grad_norm"])) <= (
         NORM_RTOL * float(wm["grad_norm"]))
     assert torch.equal(gm["lr"], wm["lr"])
-    assert int(gm["tokens"]) == int(runs["port"][arch, 1]["metrics"][
-        "tokens"])
+    assert int(gm["tokens"]) == int(wm["tokens"])
     check_step(got["leaves"], want["leaves"],
                old_params(runs["arrays"][arch]), float(wm["lr"]), tol,
                "port")
@@ -326,7 +331,7 @@ def test_sharded_step_equals_the_unsharded_port(runs, case):
 @pytest.mark.parametrize("case", _cases(), ids=_id)
 def test_sharded_step_equals_jax(runs, case):
     shape, arch = case
-    got, want = runs["ranks"][shape][arch], runs["jax"][arch, shape[0]]
+    got, want = runs["ranks"][shape][arch], runs["jax"][arch, ACCUM]
     assert abs(float(got["loss"]) - want["loss"]) <= (
         JAX_LOSS_RTOL * abs(want["loss"]))
     close_leaves(got["grads"], want["grads"], JAX_GRAD_TOL, "grads")

@@ -28,17 +28,18 @@ held, and how closely (fixed before the first run):
   all the rows: 1 row of olmo-1b on (2, 1) and 2 rows of qwen3-moe on
   (4, 1), against the unsharded step on those rows, as above (a sum over
   "data" of the gathered weights' gradients would count each D times);
-- each data rank's rows as its own microbatches and token groups, on
-  (2, 1) and (2, 2): qwen3-moe with one token group and capacity factor
-  0.5 (tokens are dropped), labels of -1 on parts of two rows, 2
-  microbatches, against the unsharded step with 4 as above; the
-  unsharded step with 2, the reference's grouping (one group per
-  microbatch spanning the data ranks, the loss the whole microbatch's
-  mean), lies beyond that tolerance: the case pins the deviation
-  ``build_train_step``'s docstring states;
+- the reference's microbatches on (2, 1), (2, 2) and the 3-axis mesh
+  (2, 1, 2): qwen3-moe with one token group and capacity factor 0.5
+  (tokens are dropped), labels of -1 on parts of two rows, 2
+  microbatches, against the unsharded port with the same 2 as above and
+  against the JAX package's step with 2 at ``test_torch_tp_train.py``'s
+  JAX tolerances: one group a microbatch spanning the batch shards, the
+  loss the whole microbatch's mean.  Each batch shard's rows taken as
+  their own microbatches and groups (the unsharded step with 4) lie
+  beyond the port tolerance;
 - jamba with bf16 ``accum_dtype`` and bf16 moments (its
-  ``TRAIN_SETTINGS``) in bf16 compute on (2, 2), 2 microbatches a rank,
-  against the unsharded step with 4: each gradient leaf's distance from
+  ``TRAIN_SETTINGS``) in bf16 compute on (2, 2), 2 microbatches, against
+  the unsharded step with 2: each gradient leaf's distance from
   the unsharded bf16 gradient, read as ``test_torch_train.py`` reads its
   bands (the largest difference over the largest |g|, the norm of the
   difference over the norm), at most twice the unsharded bf16 gradient's
@@ -54,7 +55,7 @@ held, and how closely (fixed before the first run):
   (2, 1) and onto (1, 1): the leaves bit for bit the saved ones, the
   placements the new mesh's rules'; the next step on (1, 1) bit for bit
   the unsharded step's from the saved state, and on (2, 1) held against
-  the unsharded step with 2 microbatches as above, but for the params:
+  the same unsharded step as above, but for the params:
   past the first step AdamW's update no longer reduces to the sign of the
   gradient, so each param is held within ``lr`` times the update's first
   order change under a gradient error ``dg`` (the gradient tolerance of
@@ -64,9 +65,11 @@ held, and how closely (fixed before the first run):
   plus 1e-4 of the leaf's largest update and 1e-6 of the param;
 - the dry run's count of the tensor-parallel step's collectives
   (``launch.dryrun.shards_collectives``, on fake tensors at rank 0's
-  shapes over a device-free mesh) equals, byte for byte by type, what
-  the collectives of ``sharded_grads`` move on the ranks (each
-  ``Shards`` collective recorded as it runs) on (1, 2) and (2, 1), for
+  shapes over a device-free mesh; less the squared norm's 4 bytes, which
+  ``DTensor`` reduces) equals, byte for byte by type, what the
+  collectives of ``sharded_grads`` move on the ranks (each ``Shards``
+  collective recorded as it runs, the all-reduce of the gradients
+  replicated over "data" included) on (1, 2) and (2, 1), for
   paligemma at 3 layers (the count runs 1 and 2 and extrapolates) and
   qwen3-moe with 2 microbatches.
 """
@@ -78,9 +81,11 @@ import pytest
 import torch
 
 from repro_torch.configs import get_reduced
-from test_torch_tp_train import (ARCHS, GRAD_TOL, LOSS_RTOL, NORM_RTOL,
+from test_torch_tp_train import (ARCHS, GRAD_TOL, JAX_GRAD_TOL,
+                                 JAX_LOSS_RTOL, LOSS_RTOL, NORM_RTOL,
                                  batch_of, check_step, close_leaves, compute,
-                                 leaves, old_params, opt_cfg, run, state_of)
+                                 jax_run, leaves, old_params, opt_cfg, run,
+                                 state_of)
 from torch_ranks import gathered, spawn
 
 NARROW = ("paligemma_3b", "phi3_medium_14b", "qwen3_moe_235b_a22b",
@@ -94,7 +99,8 @@ BF16_ARCH = "jamba_v01_52b"
 FEW_ROWS = (((2, 1), "olmo_1b", 1), ((4, 1), "qwen3_moe_235b_a22b", 2))
 # one token group a microbatch, dropped tokens, uneven label counts
 SPAN = dict(edit=dict(moe_groups=1, capacity_factor=0.5), masked=True)
-SPAN_MESHES = ((2, 1), (2, 2))
+SPAN_MESHES = ((2, 1), (2, 2), (2, 1, 2))
+SPAN_ACCUM = 2
 BF16_FLOOR = 2.0 ** -8
 BF16_LOSS_RTOL = 1e-2
 SCALE_RTOL = 1e-5
@@ -104,7 +110,8 @@ COUNT_ACCUM = 2
 
 def _mesh(shape):
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    names = ("pod", "data", "model")[-len(shape):]
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
 
 
 def _rules(shape):
@@ -209,8 +216,8 @@ def pair_ranks(rank, world, out, arrays):
     res["fsdp"] = fsdp_grad(sh21, sh21.rank("data"), pair_inputs())
     res["accum"] = run(arrays[ACCUM_ARCH], ACCUM_ARCH, rules, 2)
     res["few", (2, 1)] = few_rows(arrays, (2, 1))
-    res["span", (2, 1)] = run(arrays[ACCUM_ARCH], ACCUM_ARCH, rules21, 2,
-                              **SPAN)
+    res["span", (2, 1)] = run(arrays[ACCUM_ARCH], ACCUM_ARCH, rules21,
+                              SPAN_ACCUM, **SPAN)
     res["compress"] = run(arrays[COMPRESS_ARCH], COMPRESS_ARCH, rules, 1,
                           compress=True)
     # the checkpoint: one step on (1, 2), saved, restored onto (2, 1)
@@ -305,16 +312,17 @@ def mesh_of_one(rank, world, out, arrays, ckpt):
 
 def narrow_ranks(rank, world, out, shape, arrays):
     """The narrow archs on ``shape``; on 4 ranks also jamba's bf16 state
-    and ``SPAN``'s case on (2, 2), and the rows that (4, 1) does not
-    split."""
+    and ``SPAN``'s case on (2, 2) and (2, 1, 2), and the rows that (4, 1)
+    does not split."""
     rules = _rules(shape)
     res = {arch: run(arrays[arch], arch, rules) for arch in NARROW}
     if shape == (1, 4):
         rules22 = _rules((2, 2))
         res["bf16"] = run(arrays[BF16_ARCH], BF16_ARCH, rules22, 2,
                           **bf16_settings())
-        res["span", (2, 2)] = run(arrays[ACCUM_ARCH], ACCUM_ARCH, rules22, 2,
-                                  **SPAN)
+        for span in SPAN_MESHES[1:]:
+            res["span", span] = run(arrays[ACCUM_ARCH], ACCUM_ARCH,
+                                    _rules(span), SPAN_ACCUM, **SPAN)
         res["few", (4, 1)] = few_rows(arrays, (4, 1))
     return res if rank == 0 else None
 
@@ -363,21 +371,25 @@ def runs(tmp_path_factory, one_thread):
         port["accum"] = run(arrays[ACCUM_ARCH], ACCUM_ARCH, None, 2)
         port["compress"] = run(arrays[COMPRESS_ARCH], COMPRESS_ARCH, None,
                                1, compress=True)
-        port["bf16"] = run(arrays[BF16_ARCH], BF16_ARCH, None, 4,
+        port["bf16"] = run(arrays[BF16_ARCH], BF16_ARCH, None, 2,
                            **bf16_settings())
-        port["bf16_f32"] = run(arrays[BF16_ARCH], BF16_ARCH, None, 4)
+        port["bf16_f32"] = run(arrays[BF16_ARCH], BF16_ARCH, None, 2)
         for _, arch, rows in FEW_ROWS:
             port["few", arch] = run(arrays[arch], arch, rows=rows)
-        port["span"] = run(arrays[ACCUM_ARCH], ACCUM_ARCH, None, 4, **SPAN)
-        port["span_global"] = run(arrays[ACCUM_ARCH], ACCUM_ARCH, None, 2,
-                                  **SPAN)
+        # each batch shard's rows as their own microbatches: not the step
+        port["span_own"] = run(arrays[ACCUM_ARCH], ACCUM_ARCH, None,
+                               2 * SPAN_ACCUM, **SPAN)
+        port["span"] = run(arrays[ACCUM_ARCH], ACCUM_ARCH, None, SPAN_ACCUM,
+                           **SPAN)
+        port["span_jax"] = jax_run(arrays[ACCUM_ARCH], ACCUM_ARCH,
+                                   SPAN_ACCUM, masked=SPAN["masked"],
+                                   edit=SPAN["edit"])
         got = ranks.result()
         # the references from the saved checkpoint
         from repro_torch.pytree import tree_unflatten
         like = state_of(arrays[CKPT_ARCH], get_reduced(CKPT_ARCH))
         saved = tree_unflatten(like, [t.clone() for t in
                                       got["pairs"]["saved"]])
-        port["after21"] = run(None, CKPT_ARCH, None, 2, state=saved)
         port["after11"] = run(None, CKPT_ARCH, None, 1, state=saved)
         return {"ranks": got, "port": port, "arrays": arrays}
 
@@ -485,16 +497,30 @@ def test_rows_that_data_does_not_split_equal_the_unsharded_step(runs, case):
 
 
 @pytest.mark.parametrize("shape", SPAN_MESHES,
-                         ids=lambda s: f"{s[0]}x{s[1]}")
+                         ids=lambda s: "x".join(map(str, s)))
 def test_token_groups_and_loss_are_each_data_rank_rows(runs, shape):
-    want, other = runs["port"]["span"], runs["port"]["span_global"]
-    _held(_spawned(runs, ("span", shape)), want,
-          old_params(runs["arrays"][ACCUM_ARCH]), ACCUM_ARCH)
-    # the reference's grouping gives another step
-    assert abs(float(other["loss"]) - float(want["loss"])) > (
+    """The reference's microbatches, whatever the batch shards: each
+    microbatch's token group spans them, its capacity and dropped
+    dispatches are the whole microbatch's, and its loss divides by its
+    whole label count (the rows carry different counts)."""
+    got = _spawned(runs, ("span", shape))
+    want, own = runs["port"]["span"], runs["port"]["span_own"]
+    arrays = old_params(runs["arrays"][ACCUM_ARCH])
+    _held(got, want, arrays, ACCUM_ARCH)
+    jx = runs["port"]["span_jax"]
+    assert abs(float(got["loss"]) - jx["loss"]) <= (
+        JAX_LOSS_RTOL * abs(jx["loss"]))
+    close_leaves(got["grads"], jx["grads"], JAX_GRAD_TOL, "grads")
+    assert abs(float(got["metrics"]["grad_norm"])
+               - jx["metrics"]["grad_norm"]) <= (
+        JAX_LOSS_RTOL * jx["metrics"]["grad_norm"])
+    check_step(got["leaves"], jx["leaves"], arrays, jx["metrics"]["lr"],
+               JAX_GRAD_TOL, "jax")
+    # each batch shard's rows as their own microbatches give another step
+    assert abs(float(own["loss"]) - float(want["loss"])) > (
         LOSS_RTOL * abs(float(want["loss"])))
     with pytest.raises(AssertionError):
-        close_leaves(other["grads"], want["grads"], GRAD_TOL, "grads")
+        close_leaves(own["grads"], want["grads"], GRAD_TOL, "grads")
 
 
 def _band(a, b) -> tuple:
@@ -563,7 +589,7 @@ def test_checkpoint_restores_onto_other_meshes(runs):
     assert int(got["leaves"][-1]) == 2
     assert all(torch.equal(got["metrics"][k], want["metrics"][k])
                for k in want["metrics"])
-    got, want = pairs["after21"], runs["port"]["after21"]
+    got, want = pairs["after21"], runs["port"]["after11"]
     tol = GRAD_TOL
     assert abs(float(got["loss"]) - float(want["loss"])) <= (
         LOSS_RTOL * abs(float(want["loss"])))
@@ -620,7 +646,7 @@ def test_dry_run_counts_what_the_collectives_move(runs, shape, arch):
     cell = Shape("train_4k", S, B, "train")
     settings = {"accum": COUNT_ACCUM}
     counted = shards_collectives(cfg, rules, cell, settings)
-    counted.pop("replicated_over_data")
+    counted["all-reduce"] -= 4     # the squared norm, DTensor's reduction
     moved = runs["ranks"]["pairs"]["moved"][shape, arch]
     assert counted == moved
     assert moved["all-reduce" if shape[1] > 1 else "all-gather"] > 0

@@ -5,11 +5,13 @@ CPU for a rehearsal (``--device cpu``).
 
 A probe's ``main`` calls ``mesh_shapes(args)`` and then ``launch(rank_main,
 args)``; its ``rank_main(rank, args, port)`` calls ``join`` first and uses
-``report``, ``free``, ``clock`` and ``checksum``.
+``report``, ``free``, ``clock`` and ``checksum``, and ``mesh_axes`` and
+``batch_shards`` of each of ``mesh_shapes``' shapes.
 """
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import socket
 
@@ -75,21 +77,34 @@ def free(on_card: bool) -> None:
 
 
 def mesh_shapes(args) -> list:
-    """``args.meshes`` ("1x4,2x2") as (data, model) pairs, each of
-    ``args.cards`` devices; on the card, that many cards must be
-    present."""
+    """``args.meshes`` ("1x4,2x2,2x1x2") as (data, model) pairs or (pod,
+    data, model) triples, each of ``args.cards`` devices; on the card,
+    that many cards must be present."""
     shapes = []
     for shape in args.meshes.split(","):
-        d, m = (int(x) for x in shape.split("x"))
-        if d * m != args.cards:
-            raise SystemExit(f"mesh {shape} is not {args.cards} cards")
-        shapes.append((d, m))
+        dims = tuple(int(x) for x in shape.split("x"))
+        if len(dims) not in (2, 3) or math.prod(dims) != args.cards:
+            raise SystemExit(f"mesh {shape} is not {args.cards} cards over "
+                             "(data, model) or (pod, data, model)")
+        shapes.append(dims)
     if args.device == "cuda":
         import torch
         if torch.cuda.device_count() < args.cards:
             raise SystemExit(f"{args.cards} cards asked for, "
                              f"{torch.cuda.device_count()} present")
     return shapes
+
+
+def mesh_axes(dims: tuple) -> tuple:
+    """The axis names of a mesh of shape ``dims``: the JAX package's
+    single-pod ("data", "model") or multi-pod ("pod", "data", "model")."""
+    return ("pod", "data", "model")[-len(dims):]
+
+
+def batch_shards(dims: tuple) -> int:
+    """The shards of a batch over the mesh's batch axes (all but
+    "model")."""
+    return math.prod(dims[:-1])
 
 
 def launch(rank_main, args, **env) -> int:

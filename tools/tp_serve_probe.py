@@ -6,7 +6,8 @@ costs and answers on real collectives.
 (``tcp://localhost``, a free port).  For each ``--arch`` (at its published
 widths, cut to ``--layers`` layers, by default ``CUT``'s or all of them,
 weights from ``--seed`` on every card alike) and each ``--meshes`` shape
-(data x model, its product the number of cards), every rank:
+(data x model, or pod x data x model over the JAX package's multi-pod
+axes, its product the number of cards), every rank:
 
 - runs the unsharded builders on its own card (the whole model) as the
   reference: a check of ``CHECK_BATCH`` x ``CHECK_PROMPT`` tokens and
@@ -37,6 +38,7 @@ Rank 0 prints one JSON line per (arch, mesh) and a last line
 every card are checked equal first (a sum over every leaf).
 
     python3 tools/tp_serve_probe.py --cards 4 --meshes 1x4,2x2,4x1
+    python3 tools/tp_serve_probe.py --cards 4 --meshes 2x2x1,2x1x2
     python3 tools/tp_serve_probe.py --cards 4 --arch phi3_medium_14b \\
         --meshes 1x4            # kv heads 10: the cache splits head_dim
     python3 tools/tp_serve_probe.py --cards 4 \\
@@ -57,7 +59,8 @@ import pathlib
 import statistics
 import sys
 
-from probe_ranks import checksum, clock, free, join, launch, mesh_shapes
+from probe_ranks import (checksum, clock, free, join, launch, mesh_axes,
+                         mesh_shapes)
 from probe_ranks import report as report_of
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -199,7 +202,7 @@ def rank_main(rank, args):
             free(on_card)
             for dims in mesh_shapes(args):
                 mesh = init_device_mesh(dev.type, dims,
-                                        mesh_dim_names=("data", "model"))
+                                        mesh_dim_names=mesh_axes(dims))
                 rules = rules_of(mesh)
                 params = shard_params(init_params(cfg, args.seed,
                                                   device=dev), cfg, rules)

@@ -7,12 +7,14 @@ computes when the collectives' backwards run on NCCL.
 widths; ``--layers`` layers, by default ``CUT``'s or all of them; params
 and moments in the dtypes of its ``TRAIN_SETTINGS``; weights from
 ``--seed`` on every card alike) and each ``--meshes`` shape (data x model,
-its product the number of cards):
+or pod x data x model over the JAX package's multi-pod axes, its product
+the number of cards):
 
 - a check at ``CHECK_LAYERS`` layers (fewer where the arch has fewer),
   ``CHECK_BATCH`` x ``CHECK_SEQ`` tokens, f32 compute: rank 0 runs the
-  unsharded gradient and step on its own card with D microbatches (D the
-  mesh's data shards: a data rank's rows are its own microbatch) and
+  unsharded gradient and step on its own card with one microbatch, as
+  the sharded step (the reference's step: its microbatch's loss and MoE
+  token groups are the whole microbatch's, wherever its rows lie), and
   keeps them on its host; then every rank runs ``train.sharded_grads``
   and one step of ``build_train_step(..., rules=make_rules(mesh))`` from
   the same state, and rank 0 holds the loss, every gradient leaf and
@@ -21,8 +23,9 @@ its product the number of cards):
   copies of a 3.7 B-param state and its gradient exceed the machine's
   memory);
 - every rank times the cell in bf16 at ``--layers``: ``--batch`` x
-  ``--seq`` tokens, the settings' accumulation (at most a data rank's
-  rows), ``remat="full"``, one warm-up then ``--timed`` steps with CUDA
+  ``--seq`` tokens, the settings' accumulation (at most the rows over
+  the batch shards, so each microbatch splits over them), ``remat=
+  "full"``, one warm-up then ``--timed`` steps with CUDA
   events, on one card unsharded and then sharded, with the peak memory
   and the state a card holds; ``--timed 0`` runs the checks only.
 
@@ -43,6 +46,7 @@ every card are checked equal first (a sum over every leaf).
 
     python3 tools/tp_train_probe.py --cards 4 --meshes 1x4,2x2,4x1 \\
         --arch paligemma_3b,qwen3_moe_235b_a22b
+    python3 tools/tp_train_probe.py --cards 4 --meshes 2x2x1,2x1x2
 
 ``--device cpu --reduced`` runs the same on ``gloo`` with the reduced
 configs (a rehearsal; times there are not device times).
@@ -56,7 +60,8 @@ import pathlib
 import statistics
 import sys
 
-from probe_ranks import checksum, clock, free, join, launch, mesh_shapes
+from probe_ranks import (batch_shards, checksum, clock, free, join, launch,
+                         mesh_axes, mesh_shapes)
 from probe_ranks import report as report_of
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -156,11 +161,11 @@ def rank_main(rank, args):
         return {k: torch.from_numpy(v).to(dev) for k, v in TokenPipeline(
             cfg, b, seq, seed=args.seed).batch_at(0).items()}
 
-    def check(cfg, settings, rules, d: int):
+    def check(cfg, settings, rules):
         """The f32 check on ``rules``' mesh: rank 0's own unsharded
-        gradient and step with ``d`` microbatches, kept on its host,
-        against the sharded ones, each leaf gathered whole and compared
-        as it comes (the other ranks return None)."""
+        gradient and step, one microbatch, kept on its host, against the
+        sharded ones, each leaf gathered whole and compared as it comes
+        (the other ranks return None)."""
         batch = batch_of(cfg, CHECK_BATCH, CHECK_SEQ)
         with mock.patch.object(lm, "COMPUTE_DTYPE", torch.float32):
             opt, state = _state(cfg, settings, args.seed, dev)
@@ -170,12 +175,10 @@ def rank_main(rank, args):
                                    "weights")
             if rank == 0:
                 old = [t.cpu() for t in tree_leaves(state.params)]
-                grads, _ = accumulate_grads(cfg, state.params, batch,
-                                            accum=d)
+                grads, _ = accumulate_grads(cfg, state.params, batch)
                 want_g = [t.cpu() for t in tree_leaves(grads)]
                 del grads
-                new, want_m = build_train_step(cfg, opt, accum=d)(state,
-                                                                  batch)
+                new, want_m = build_train_step(cfg, opt)(state, batch)
                 want = [t.cpu() for t in tree_leaves(new)]
                 del new
             del state
@@ -266,13 +269,14 @@ def rank_main(rank, args):
             one = (timed(cfg, settings, None,
                          min(settings.get("accum", 1), rows))
                    if args.timed else None)
-            for d, m in mesh_shapes(args):
-                mesh = init_device_mesh(dev.type, (d, m),
-                                        mesh_dim_names=("data", "model"))
+            for dims in mesh_shapes(args):
+                mesh = init_device_mesh(dev.type, dims,
+                                        mesh_dim_names=mesh_axes(dims))
                 rules = make_rules(mesh)
-                res = check(small, settings, rules, d)
+                res = check(small, settings, rules)
                 t = (timed(cfg, settings, rules,
-                           min(settings.get("accum", 1), rows // d))
+                           min(settings.get("accum", 1),
+                               rows // batch_shards(dims)))
                      if args.timed else None)
                 every = report({"check": res, "timed": t})
                 passed = every[0]["check"]["passed"]
@@ -285,7 +289,7 @@ def rank_main(rank, args):
                         "seq": args.seq,
                         "f32_check": {
                             "layers": small.n_layers, "batch": CHECK_BATCH,
-                            "seq": CHECK_SEQ, "microbatches": d,
+                            "seq": CHECK_SEQ, "microbatches": 1,
                             "rank0": every[0]["check"], "passed": passed},
                         "sharded": t and {
                             "accum": t["accum"],
@@ -323,10 +327,11 @@ def main() -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--reduced", action="store_true")
     args = ap.parse_args()
-    for d, _ in mesh_shapes(args):
+    for dims in mesh_shapes(args):
+        d = batch_shards(dims)
         if args.batch % d or CHECK_BATCH % d:
-            raise SystemExit(f"mesh {d}x{args.cards // d}: the batch does "
-                             "not split over its data shards")
+            raise SystemExit(f"mesh {'x'.join(map(str, dims))}: the batch "
+                             "does not split over its batch shards")
     # segments that grow: the one-card step of paligemma-3b (old and new
     # state, 60 GB) does not fit among fixed-size freed blocks
     return launch(rank_main, args,
