@@ -61,6 +61,7 @@ import dataclasses
 
 import torch
 
+from .. import obs
 from ..device import DeviceLike, resolve_device
 from ..sharding.collectives import Shards
 from .attention import decode_attention, flash_attention
@@ -301,7 +302,8 @@ def _apply_block(kind, h, p, cfg: ModelConfig, ctx: Ctx, cache):
     views (rebinding a key of ``cache`` would lose it)."""
     mixer, ffn = kind.split("+")
     if mixer in ("attn", "swa"):
-        h = _attention_mixer(kind, h, p, cfg, ctx, cache)
+        with obs.span("lm.attention"):
+            h = _attention_mixer(kind, h, p, cfg, ctx, cache)
     elif mixer == "mamba":
         x = _norm(h, p["norm1"], cfg)
         if ctx.mode == "full":

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from .config import ModelConfig
 from .layers import act_fn, checkpointed
 
@@ -83,9 +84,16 @@ def route(xt: torch.Tensor, p: dict, cfg: ModelConfig,
 
 def _route(xt, p, cfg, router_bits, shards):
     # unsharded, ``route`` is called as it always was (tools patch it)
-    if shards is None:
-        return route(xt, p, cfg, router_bits)
-    return route(xt, p, cfg, router_bits, shards=shards)
+    with obs.span("moe.route"):
+        if shards is None:
+            return route(xt, p, cfg, router_bits)
+        return route(xt, p, cfg, router_bits, shards=shards)
+
+
+def _cast(p: dict, dt: torch.dtype) -> dict:
+    """The expert weights in the compute dtype."""
+    with obs.span("moe.cast"):
+        return {n: p[n].to(dt) for n in _EXPERT_WEIGHTS}
 
 
 def moe_ffn(
@@ -108,35 +116,36 @@ def moe_ffn(
     experts, on ``x`` entered into its part (``Shards.enter``), as the
     router's logits of its experts' columns are; the combined outputs are
     then partial sums, added over "model"."""
-    b, s, d = x.shape
-    t = b * s
-    n_shards = 1 if shards is None else shards.batch_shards
-    tg = t * n_shards                                       # global tokens
-    g = cfg.moe_groups if tg % cfg.moe_groups == 0 else 1  # decode: t=B
-    dt = x.dtype
-    # Serving casts the expert weights once per layer call, shared by every
-    # group.  With a gradient each group casts its own (inside its
-    # checkpoint), so the f32 leaves collect the groups' gradients in f32,
-    # as the reference's per-group cast does.
-    w = (None if torch.is_grad_enabled() else
-         {n: p[n].to(dt) for n in _EXPERT_WEIGHTS})
-    split = p["w_gate"].shape[0] < cfg.n_experts   # this rank's experts only
-    if split:
-        x = shards.enter(x)          # into the router's and experts' columns
-    if g % n_shards:
-        y = _moe_spanning(x.reshape(t, d), p, cfg, router_bits, w, shards, g)
-    else:
-        g //= n_shards                                      # this rank's
-        xg = x.reshape(g, t // g, d)
-        # with groups, each is recomputed in the backward (the reference's
-        # checkpointed scan over groups)
-        remat = "full" if g > 1 else "none"
-        y = torch.stack([checkpointed(_moe_group, xg[i], p, cfg, router_bits,
-                                      w, shards, remat=remat)
-                         for i in range(g)])
-    if split:
-        y = shards.sum(y, "model")
-    return y.reshape(b, s, d)
+    with obs.span("lm.moe"):
+        b, s, d = x.shape
+        t = b * s
+        n_shards = 1 if shards is None else shards.batch_shards
+        tg = t * n_shards                                   # global tokens
+        g = cfg.moe_groups if tg % cfg.moe_groups == 0 else 1  # decode: t=B
+        dt = x.dtype
+        # Serving casts the expert weights once per layer call, shared by
+        # every group.  With a gradient each group casts its own (inside its
+        # checkpoint), so the f32 leaves collect the groups' gradients in
+        # f32, as the reference's per-group cast does.
+        w = None if torch.is_grad_enabled() else _cast(p, dt)
+        split = p["w_gate"].shape[0] < cfg.n_experts  # this rank's experts
+        if split:
+            x = shards.enter(x)      # into the router's and experts' columns
+        if g % n_shards:
+            y = _moe_spanning(x.reshape(t, d), p, cfg, router_bits, w, shards,
+                              g)
+        else:
+            g //= n_shards                                  # this rank's
+            xg = x.reshape(g, t // g, d)
+            # with groups, each is recomputed in the backward (the
+            # reference's checkpointed scan over groups)
+            remat = "full" if g > 1 else "none"
+            y = torch.stack([checkpointed(_moe_group, xg[i], p, cfg,
+                                          router_bits, w, shards, remat=remat)
+                             for i in range(g)])
+        if split:
+            y = shards.sum(y, "model")
+        return y.reshape(b, s, d)
 
 
 def _local_experts(p: dict, cfg: ModelConfig, shards) -> tuple[int, int]:
@@ -164,11 +173,12 @@ def _moe_group(
     t, d = xt.shape
     e = cfg.n_experts
     if w is None:
-        w = {n: p[n].to(xt.dtype) for n in _EXPERT_WEIGHTS}
+        w = _cast(p, xt.dtype)
     top_w, top_i = _route(xt, p, cfg, router_bits, shards)
     c = capacity(cfg, t)
     flat_e = top_i.reshape(-1)                              # (T*k,)
-    pos = _positions_in_expert(flat_e, e)
+    with obs.span("moe.dispatch"):
+        pos = _positions_in_expert(flat_e, e)
     e0, ne = _local_experts(p, cfg, shards)
     top_w = _gates_in(top_w, ne, cfg, shards)
     return _experts(xt, top_w, flat_e, pos, c, 1, e0, ne, w, cfg)
@@ -186,15 +196,16 @@ def _moe_spanning(xt, p, cfg, router_bits, w, shards, g) -> torch.Tensor:
     t, d = xt.shape
     e = cfg.n_experts
     if w is None:
-        w = {n: p[n].to(xt.dtype) for n in _EXPERT_WEIGHTS}
+        w = _cast(p, xt.dtype)
     top_w, top_i = _route(xt, p, cfg, router_bits, shards)
     k = top_i.shape[1]
     every = shards.gather(top_i, shards.batch_axes, 0)      # (T_global, k)
     tg = every.shape[0]
     per = tg // g                                           # group size
     group = torch.arange(tg, device=xt.device) // per
-    pos = _positions_in_expert(
-        (group[:, None] * e + every).reshape(-1), g * e)    # per group
+    with obs.span("moe.dispatch"):
+        pos = _positions_in_expert(
+            (group[:, None] * e + every).reshape(-1), g * e)  # per group
     first = shards.batch_index * t
     g0, g1 = first // per, (first + t - 1) // per           # this rank's
     pos = pos[first * k:(first + t) * k]
@@ -214,29 +225,36 @@ def _experts(xt, top_w, flat_e, pos, c: int, groups: int, e0: int, ne: int,
     t, d = xt.shape
     k = flat_e.shape[0] // t
     dt = xt.dtype
-    keep = pos < c
-    if ne < cfg.n_experts:
-        keep &= (flat_e >= e0) & (flat_e < e0 + ne)
-        flat_e = flat_e - e0
     rows = groups * c                                       # per expert
-    at = pos if group is None else group * c + pos
-    slot = torch.where(keep, flat_e * rows + at, ne * rows)  # overflow -> last
+    with obs.span("moe.dispatch"):
+        keep = pos < c
+        if ne < cfg.n_experts:
+            keep &= (flat_e >= e0) & (flat_e < e0 + ne)
+            flat_e = flat_e - e0
+        if obs.counting():
+            obs.add("moe.dispatched", t * k)
+            obs.add("moe.kept", keep.sum())
+            obs.add("moe.slots", ne * rows)
+        at = pos if group is None else group * c + pos
+        slot = torch.where(keep, flat_e * rows + at, ne * rows)  # overflow
 
-    x_rep = torch.repeat_interleave(xt, k, dim=0)           # (T*k, D)
-    src = torch.where(keep[:, None], x_rep, 0)
-    # every dropped dispatch writes zeros to the one overflow row, so the
-    # order of those duplicate writes does not matter
-    buf = torch.zeros((ne * rows + 1, d), dtype=dt, device=xt.device)
-    buf[slot] = src
-    h = buf[: ne * rows].reshape(ne, rows, d)
+        x_rep = torch.repeat_interleave(xt, k, dim=0)       # (T*k, D)
+        src = torch.where(keep[:, None], x_rep, 0)
+        # every dropped dispatch writes zeros to the one overflow row, so
+        # the order of those duplicate writes does not matter
+        buf = torch.zeros((ne * rows + 1, d), dtype=dt, device=xt.device)
+        buf[slot] = src
+        h = buf[: ne * rows].reshape(ne, rows, d)
 
-    gg = torch.bmm(h, w["w_gate"])
-    u = torch.bmm(h, w["w_up"])
-    out = torch.bmm(act_fn(gg, cfg.mlp_act) * u, w["w_down"])
+    with obs.span("moe.experts"):
+        gg = torch.bmm(h, w["w_gate"])
+        u = torch.bmm(h, w["w_up"])
+        out = torch.bmm(act_fn(gg, cfg.mlp_act) * u, w["w_down"])
 
-    out_flat = torch.cat(
-        [out.reshape(ne * rows, d), torch.zeros((1, d), dtype=dt,
-                                                device=xt.device)], dim=0)
-    y_disp = out_flat[slot] * keep[:, None].to(dt)          # (T*k, D)
-    return (y_disp.reshape(t, k, d)
-            * top_w.reshape(t, k, 1).to(dt)).sum(dim=1)
+    with obs.span("moe.combine"):
+        out_flat = torch.cat(
+            [out.reshape(ne * rows, d), torch.zeros((1, d), dtype=dt,
+                                                    device=xt.device)], dim=0)
+        y_disp = out_flat[slot] * keep[:, None].to(dt)      # (T*k, D)
+        return (y_disp.reshape(t, k, d)
+                * top_w.reshape(t, k, 1).to(dt)).sum(dim=1)

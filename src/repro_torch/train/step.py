@@ -33,10 +33,12 @@ expert-parallel collectives explicit in ``models.lm``.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
+from .. import obs
 from ..device import DeviceLike
 from ..models import (ModelConfig, decode_step, init_cache, init_params,
                       loss_fn, param_logical_axes, prefill)
@@ -221,10 +223,11 @@ def _value_and_grad(cfg: ModelConfig, params, batch, remat: str,
     for a leaf the loss does not use), all detached; with ``shards``, each
     ``DTensor`` leaf's gradient as its local shard."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-    with torch.enable_grad():
+    with torch.enable_grad(), obs.span("train.forward"):
         loss, metrics = loss_fn(tree_unflatten(params, leaves), cfg, batch,
                                 remat=remat, shards=shards)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with obs.span("train.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [_local(torch.zeros_like(p) if g is None else g)
              for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
@@ -276,6 +279,15 @@ def accumulate_grads(cfg: ModelConfig, params, batch, *, accum: int = 1,
                                                    device=g.device)), g_acc)
     return grads, {"loss": l_acc / torch.tensor(accum, dtype=torch.float32,
                                                 device=l_acc.device)}
+
+
+def _spanned(name: str, step):
+    """``step`` inside the span ``name`` (``obs``)."""
+    @functools.wraps(step)
+    def spanned(*args, **kw):
+        with obs.span(name):
+            return step(*args, **kw)
+    return spanned
 
 
 def build_train_step(
@@ -349,15 +361,16 @@ def build_train_step(
         grads, metrics = accumulate_grads(cfg, state.params, batch,
                                           accum=accum, remat=remat,
                                           accum_dtype=accum_dtype)
-        ef = state.ef
-        if compress:
-            grads, ef = ef_compress(grads, ef)
-        params, opt, m2 = adamw_update(grads, state.opt, state.params,
-                                       opt_cfg, donate_grads=True)
+        with obs.span("train.update"):
+            ef = state.ef
+            if compress:
+                grads, ef = ef_compress(grads, ef)
+            params, opt, m2 = adamw_update(grads, state.opt, state.params,
+                                           opt_cfg, donate_grads=True)
         return TrainState(params=params, opt=opt, ef=ef), dict(metrics, **m2)
 
     if rules is None:
-        return train_step
+        return _spanned("step.train", train_step)
     mesh = _device_mesh(rules)
 
     def update(state: TrainState, grads, metrics):
@@ -366,7 +379,8 @@ def build_train_step(
         from torch.distributed.tensor import DTensor
         from torch.distributed.tensor.experimental import (
             implicit_replication)
-        with use_rules(rules), implicit_replication():
+        with use_rules(rules), implicit_replication(), \
+                obs.span("train.update"):
             ef = state.ef
             if compress:
                 grads, ef = ef_compress(grads, ef)
@@ -414,7 +428,8 @@ def build_train_step(
                                        accum_dtype=accum_dtype)
         return update(state, grads, metrics)
 
-    return dp_step if rules.table.get("_gather_tp") else tp_step
+    return _spanned("step.train",
+                    dp_step if rules.table.get("_gather_tp") else tp_step)
 
 
 def sharded_grads(cfg: ModelConfig, params, batch, rules: Rules, *,
@@ -523,7 +538,7 @@ def build_prefill_step(cfg: ModelConfig, rules: Optional[Rules] = None):
             return prefill(params, cfg, batch["tokens"], caches,
                            frontend=batch.get("patches"),
                            frames=batch.get("frames"))
-        return prefill_step
+        return _spanned("step.prefill", prefill_step)
     _serving_mesh(rules)
 
     def sharded_prefill(params, batch, caches):
@@ -535,7 +550,7 @@ def build_prefill_step(cfg: ModelConfig, rules: Optional[Rules] = None):
         return prefill(params, cfg, rows["tokens"], caches,
                        frontend=rows.get("patches"), frames=rows.get("frames"),
                        shards=shards)
-    return sharded_prefill
+    return _spanned("step.prefill", sharded_prefill)
 
 
 def build_decode_step(cfg: ModelConfig, rules: Optional[Rules] = None):
@@ -545,7 +560,7 @@ def build_decode_step(cfg: ModelConfig, rules: Optional[Rules] = None):
     if rules is None:
         def serve_step(params, token, caches, pos):
             return decode_step(params, cfg, token, caches, pos)
-        return serve_step
+        return _spanned("step.decode", serve_step)
     _serving_mesh(rules)
 
     def sharded_decode(params, token, caches, pos):
@@ -554,4 +569,4 @@ def build_decode_step(cfg: ModelConfig, rules: Optional[Rules] = None):
         lo, hi = shards.rows
         return decode_step(params, cfg, token[lo:hi], caches, pos,
                            shards=shards)
-    return sharded_decode
+    return _spanned("step.decode", sharded_decode)
