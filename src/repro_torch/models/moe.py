@@ -7,12 +7,15 @@ to a multiple of 8) are dropped (standard GShard/Switch semantics).  The
 (E, C, D) expert buffer is the only materialized dispatch structure:
 bytes = E*C*D ~= cf * k * tokens * d_model, independent of E.
 
-Token groups (``cfg.moe_groups``, GShard style) route, dispatch and compute
-one group at a time, each with its own capacity, and are recomputed one at a
-time in the backward.  Serving casts the expert weights to the compute dtype
-once per layer call and shares them across groups.  Gradients reach the
-router only through the top-k gates that were gathered; a dispatch dropped
-over capacity gets none.
+Token groups (``cfg.moe_groups``, GShard style) each have their own
+capacity, and each dispatch is ranked within its group and expert.  Serving
+routes the layer call's tokens once and runs its groups side by side on each
+expert's capacity axis: one expert pass a layer call, which reads each
+expert weight once, cast to the compute dtype once.  Training runs one group
+at a time, each recomputed in the backward (the reference's checkpointed
+scan over groups), so that the dispatch transients scale 1/g.  Gradients
+reach the router only through the top-k gates that were gathered; a
+dispatch dropped over capacity gets none.
 
 ``router="tcam_dt"``: routing decisions come from a decision tree compiled to
 a ternary LUT by the paper's DT-HW compiler and evaluated as a ternary match
@@ -122,26 +125,27 @@ def moe_ffn(
         n_shards = 1 if shards is None else shards.batch_shards
         tg = t * n_shards                                   # global tokens
         g = cfg.moe_groups if tg % cfg.moe_groups == 0 else 1  # decode: t=B
-        dt = x.dtype
-        # Serving casts the expert weights once per layer call, shared by
-        # every group.  With a gradient each group casts its own (inside its
-        # checkpoint), so the f32 leaves collect the groups' gradients in
-        # f32, as the reference's per-group cast does.
-        w = None if torch.is_grad_enabled() else _cast(p, dt)
+        # Serving casts the expert weights once per layer call and runs the
+        # groups side by side in one expert pass.  With a gradient each group
+        # casts its own inside its checkpoint, so the f32 leaves collect the
+        # groups' gradients in f32, as the reference's per-group cast does.
+        serving = not torch.is_grad_enabled()
+        w = _cast(p, x.dtype) if serving else None
         split = p["w_gate"].shape[0] < cfg.n_experts  # this rank's experts
         if split:
             x = shards.enter(x)      # into the router's and experts' columns
         if g % n_shards:
-            y = _moe_spanning(x.reshape(t, d), p, cfg, router_bits, w, shards,
-                              g)
+            y = _moe_groups(x.reshape(t, d), p, cfg, router_bits, w, shards,
+                            tg // g, spanning=True)
+        elif serving or g == n_shards:
+            y = _moe_groups(x.reshape(t, d), p, cfg, router_bits, w, shards,
+                            tg // g)
         else:
             g //= n_shards                                  # this rank's
             xg = x.reshape(g, t // g, d)
-            # with groups, each is recomputed in the backward (the
-            # reference's checkpointed scan over groups)
-            remat = "full" if g > 1 else "none"
-            y = torch.stack([checkpointed(_moe_group, xg[i], p, cfg,
-                                          router_bits, w, shards, remat=remat)
+            # one group at a time, each recomputed in the backward
+            y = torch.stack([checkpointed(_moe_groups, xg[i], p, cfg,
+                                          router_bits, w, shards, t // g)
                              for i in range(g)])
         if split:
             y = shards.sum(y, "model")
@@ -162,58 +166,42 @@ def _gates_in(top_w, ne: int, cfg: ModelConfig, shards):
     return shards.enter(top_w) if ne < cfg.n_experts else top_w
 
 
-def _moe_group(
-    xt: torch.Tensor,             # (T, D) — one token group
-    p: dict,
-    cfg: ModelConfig,
-    router_bits: dict | None,
-    w: dict | None,               # expert weights in x's dtype, or None
-    shards=None,
-) -> torch.Tensor:
-    t, d = xt.shape
-    e = cfg.n_experts
-    if w is None:
-        w = _cast(p, xt.dtype)
-    top_w, top_i = _route(xt, p, cfg, router_bits, shards)
-    c = capacity(cfg, t)
-    flat_e = top_i.reshape(-1)                              # (T*k,)
-    with obs.span("moe.dispatch"):
-        pos = _positions_in_expert(flat_e, e)
-    e0, ne = _local_experts(p, cfg, shards)
-    top_w = _gates_in(top_w, ne, cfg, shards)
-    return _experts(xt, top_w, flat_e, pos, c, 1, e0, ne, w, cfg)
-
-
-def _moe_spanning(xt, p, cfg, router_bits, w, shards, g) -> torch.Tensor:
-    """This rank's tokens (T, D) of a batch whose ``g`` token groups do not
-    split evenly over its batch shards: the expert choices of every token
-    are gathered over the batch axes (in the global token order) and each
-    dispatch is ranked within its group and expert there; this rank runs
-    its own dispatches, its groups side by side on each expert's capacity
-    axis.  In the train step the gradient reaches ``xt`` and the router
-    through this rank's dispatches and gates (the ranking has none); the
-    gather runs again where the layer is recomputed."""
+def _moe_groups(xt, p, cfg, router_bits, w, shards, per: int,
+                spanning: bool = False) -> torch.Tensor:
+    """This rank's tokens ``xt`` (T, D), in token groups of ``per`` tokens
+    side by side on each expert's capacity axis: routed once, each dispatch
+    ranked within its group and expert, one expert pass.  ``spanning``: the
+    groups do not split evenly over the batch shards, so the expert choices
+    of every token are gathered over the batch axes (in the global token
+    order) and ranked there, and this rank runs its own dispatches.  In the
+    train step the gradient reaches ``xt`` and the router through this
+    rank's dispatches and gates (the ranking has none); the gather runs
+    again where the layer is recomputed."""
     t, d = xt.shape
     e = cfg.n_experts
     if w is None:
         w = _cast(p, xt.dtype)
     top_w, top_i = _route(xt, p, cfg, router_bits, shards)
     k = top_i.shape[1]
-    every = shards.gather(top_i, shards.batch_axes, 0)      # (T_global, k)
-    tg = every.shape[0]
-    per = tg // g                                           # group size
-    group = torch.arange(tg, device=xt.device) // per
-    with obs.span("moe.dispatch"):
-        pos = _positions_in_expert(
-            (group[:, None] * e + every).reshape(-1), g * e)  # per group
-    first = shards.batch_index * t
+    every, first = top_i, 0
+    if spanning:
+        every = shards.gather(top_i, shards.batch_axes, 0)  # (T_global, k)
+        first = shards.batch_index * t
+    n = every.shape[0]
     g0, g1 = first // per, (first + t - 1) // per           # this rank's
-    pos = pos[first * k:(first + t) * k]
-    local_group = (group[first:first + t] - g0).repeat_interleave(k)
+    with obs.span("moe.dispatch"):
+        if n == per:                                        # one group
+            pos, group = _positions_in_expert(every.reshape(-1), e), None
+        else:
+            group = torch.arange(n, device=xt.device) // per
+            pos = _positions_in_expert(
+                (group[:, None] * e + every).reshape(-1), n // per * e)
+            group = (group[first:first + t] - g0).repeat_interleave(k)
+        pos = pos[first * k:(first + t) * k]
     e0, ne = _local_experts(p, cfg, shards)
     top_w = _gates_in(top_w, ne, cfg, shards)
     return _experts(xt, top_w, top_i.reshape(-1), pos, capacity(cfg, per),
-                    g1 - g0 + 1, e0, ne, w, cfg, local_group)
+                    g1 - g0 + 1, e0, ne, w, cfg, group)
 
 
 def _experts(xt, top_w, flat_e, pos, c: int, groups: int, e0: int, ne: int,
@@ -232,6 +220,8 @@ def _experts(xt, top_w, flat_e, pos, c: int, groups: int, e0: int, ne: int,
             keep &= (flat_e >= e0) & (flat_e < e0 + ne)
             flat_e = flat_e - e0
         if obs.counting():
+            obs.add("moe.passes", 1)
+            obs.add("moe.pass_groups", groups)
             obs.add("moe.dispatched", t * k)
             obs.add("moe.kept", keep.sum())
             obs.add("moe.slots", ne * rows)

@@ -33,9 +33,12 @@ Spans (where each opens):
   ``moe.combine``: gathering and weighting the experts' outputs.
 
 Counters, in ``models.moe._experts`` (every MoE path reaches it):
-``moe.dispatched`` (host: tokens x k), ``moe.kept`` (device: dispatches
-within capacity and on this rank's experts), ``moe.slots`` (host: expert
-buffer rows computed, experts x rows).
+``moe.passes`` (host: expert passes, one a layer call in serving, one a
+token group with a gradient), ``moe.pass_groups`` (host: the token groups
+those passes computed side by side), ``moe.dispatched`` (host: tokens x k),
+``moe.kept`` (device: dispatches within capacity and on this rank's
+experts), ``moe.slots`` (host: expert buffer rows computed, experts x
+rows).
 """
 from __future__ import annotations
 
@@ -50,7 +53,8 @@ SPANS = ("step.prefill", "step.decode", "step.train", "train.forward",
          "train.backward", "train.update", "lm.attention", "lm.moe",
          "moe.cast", "moe.route", "moe.dispatch", "moe.experts",
          "moe.combine")
-COUNTERS = ("moe.dispatched", "moe.kept", "moe.slots")
+COUNTERS = ("moe.passes", "moe.pass_groups", "moe.dispatched", "moe.kept",
+            "moe.slots")
 # the caching allocator's counts whose change ``counters`` reports
 ALLOCATOR = ("num_device_alloc", "num_device_free", "num_alloc_retries",
              "num_sync_all_streams")

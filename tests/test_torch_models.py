@@ -46,6 +46,7 @@ from repro.models import params as JP
 from repro.models import rwkv as JRW
 from repro.models import tcam_router as JR
 from repro.models.config import ModelConfig as JaxModelConfig
+from repro_torch import obs
 from repro_torch.configs import get_reduced
 from repro_torch.convert import lm_params_from_arrays
 from repro_torch.core import predict, train_tree
@@ -274,19 +275,26 @@ def _jax_top(xt, w_router, k):
     return np.asarray(idx)
 
 
-@pytest.mark.parametrize("case", ["no_drops", "groups_2", "drops"])
-def test_moe_ffn_equals_jax(case):
+@pytest.mark.parametrize("grad", [True, False], ids=["grad", "no_grad"])
+@pytest.mark.parametrize("case", ["no_drops", "groups_2", "drops",
+                                  "groups_4_drops"])
+def test_moe_ffn_equals_jax(case, grad):
     """The three cases of ``test_models.py``: no drops (cf 8), two token
-    groups, and capacity drops at cf 0.25; f32 inputs."""
-    groups = 2 if case == "groups_2" else 1
-    cf = 0.25 if case == "drops" else 8.0
+    groups, and capacity drops at cf 0.25; and four groups that overflow
+    different experts at cf 0.25; f32 inputs.  With a gradient the groups
+    run one at a time, without one (serving) side by side in one pass."""
+    groups = {"groups_2": 2, "groups_4_drops": 4}.get(case, 1)
+    drops = case in ("drops", "groups_4_drops")
+    cf = 0.25 if drops else 8.0
     cfg, jcfg = _moe_cfgs(groups, capacity_factor=cf)
-    jp = _jax_block(jcfg, {"no_drops": 3, "groups_2": 5, "drops": 7}[case])
+    jp = _jax_block(jcfg, {"no_drops": 3, "groups_2": 5, "drops": 7,
+                           "groups_4_drops": 9}[case])
     tp = lm_params_from_arrays(_tree_np(jp), device=CPU)
-    seq = 32 if case == "drops" else 8
+    seq = 32 if drops else 8
     x = np.random.default_rng(4).standard_normal((2, seq, 16)).astype(
         np.float32)
-    got = TM.moe_ffn(_t(x), tp, cfg)
+    with torch.set_grad_enabled(grad):
+        got = TM.moe_ffn(_t(x), tp, cfg)
     want = JM.moe_ffn(jnp.asarray(x), jp, jcfg)
     np.testing.assert_allclose(_np(got), _np(want), **F32)
 
@@ -295,14 +303,64 @@ def test_moe_ffn_equals_jax(case):
     jtop = _jax_top(jnp.asarray(xt), jp["w_router"], 2)
     np.testing.assert_array_equal(top_i.numpy(), jtop)
     # ranks within an expert, per group, and so the tokens dropped
+    c = TM.capacity(cfg, x.shape[0] * x.shape[1] // groups)
+    over = []
     for grp_t, grp_j in zip(top_i.reshape(groups, -1),
                             jtop.reshape(groups, -1)):
+        pos = TM._positions_in_expert(grp_t, 4)
         np.testing.assert_array_equal(
-            TM._positions_in_expert(grp_t, 4).numpy(),
+            pos.numpy(),
             np.asarray(JM._positions_in_expert(jnp.asarray(grp_j), 4)))
-    if case == "drops":
-        c = TM.capacity(cfg, x.shape[0] * x.shape[1])
-        assert (TM._positions_in_expert(top_i.reshape(-1), 4) >= c).any()
+        over.append(frozenset(grp_t[pos >= c].tolist()))
+    if drops:
+        assert any(over)
+    if case == "groups_4_drops":      # not every group overflows alike
+        assert len(set(over)) > 1
+
+
+def _moe_counted(x, tp, cfg, grad: bool):
+    """``moe_ffn`` with or without a gradient: (output, counters)."""
+    obs.reset()
+    obs.enable(True)
+    try:
+        with torch.set_grad_enabled(grad):
+            y = TM.moe_ffn(x, tp, cfg)
+        return y.detach(), obs.counters()
+    finally:
+        obs.enable(False)
+        obs.reset()
+
+
+@pytest.mark.parametrize("groups,cf", [(2, 0.25), (4, 0.25), (8, 8.0)])
+def test_moe_serving_pass_keeps_the_per_group_dispatches(groups, cf):
+    """The serving pass (groups side by side) keeps and drops the same
+    dispatches as one pass a group, into as many expert rows, and gives the
+    same output."""
+    cfg, jcfg = _moe_cfgs(groups, capacity_factor=cf)
+    tp = lm_params_from_arrays(_tree_np(_jax_block(jcfg, 11)), device=CPU)
+    x = _t(np.random.default_rng(12).standard_normal((2, 32, 16)).astype(
+        np.float32))
+    y_one, per_group = _moe_counted(x, tp, cfg, grad=True)
+    y_all, side = _moe_counted(x, tp, cfg, grad=False)
+    for name in ("moe.kept", "moe.slots", "moe.dispatched"):
+        assert side[name] == per_group[name], name
+    if cf < 1:
+        assert side["moe.kept"] < side["moe.dispatched"]
+    np.testing.assert_allclose(_np(y_all), _np(y_one), **F32)
+
+
+@pytest.mark.parametrize("groups", [1, 2, 8])
+@pytest.mark.parametrize("grad", [True, False], ids=["grad", "no_grad"])
+def test_moe_pass_counters(groups, grad):
+    """Without a gradient one expert pass computes every group; with one,
+    each group is a pass of its own."""
+    cfg, jcfg = _moe_cfgs(groups)
+    tp = lm_params_from_arrays(_tree_np(_jax_block(jcfg, 5)), device=CPU)
+    x = _t(np.random.default_rng(6).standard_normal((2, 8, 16)).astype(
+        np.float32))
+    _, got = _moe_counted(x, tp, cfg, grad)
+    want = (1, groups) if not grad else (groups, groups)
+    assert (got["moe.passes"], got["moe.pass_groups"]) == want
 
 
 def test_moe_groups_invariant_and_dense_reference():

@@ -200,7 +200,7 @@ def test_off_step_runs_no_profiler_call_and_no_counter_op(qwen):
             step(params, {"tokens": tokens},
                  init_cache(cfg, B, S, device="cpu"))
         recorded[on] = rec.ops
-    calls = cfg.n_layers * cfg.moe_groups         # _experts calls
+    calls = cfg.n_layers        # _experts calls: one pass a layer call
     assert _counter_ops(recorded[False]) == (0, 0, 0)
     sums, adds, prof = _counter_ops(recorded[True])
     assert sums == adds == calls and prof > 0
@@ -235,13 +235,17 @@ def test_moe_counters_equal_routes_and_capacity(qwen, groups, cf):
         _serve(cfg, params, tokens)
     got = obs.counters()
     want = collections.Counter()
-    for top_i in routed:                      # one call per token group
-        t, k = top_i.shape
-        c = moe.capacity(cfg, t)
-        want["moe.dispatched"] += t * k
-        want["moe.kept"] += sum(1 for r in _ranks(top_i) if r < c)
-        want["moe.slots"] += cfg.n_experts * c
-    assert len(routed) == cfg.n_layers * (groups + 1)   # prefill + decode
+    for top_i in routed:          # serving: one call per layer call
+        g = groups if top_i.shape[0] % groups == 0 else 1
+        want["moe.passes"] += 1
+        want["moe.pass_groups"] += g
+        for grp in top_i.reshape(g, -1, top_i.shape[1]):
+            t, k = grp.shape
+            c = moe.capacity(cfg, t)
+            want["moe.dispatched"] += t * k
+            want["moe.kept"] += sum(1 for r in _ranks(grp) if r < c)
+            want["moe.slots"] += cfg.n_experts * c
+    assert len(routed) == cfg.n_layers * 2              # prefill + decode
     assert {k: got[k] for k in obs.COUNTERS} == dict(want)
     if cf < 1:
         assert want["moe.kept"] < want["moe.dispatched"]
