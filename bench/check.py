@@ -122,32 +122,90 @@ def _cache_leaf(caches, name):
     return next(iter(caches.values()))[name]
 
 
+def checker(ctx, j: int) -> int:
+    """The rank that checks kept batch ``j``: the batches dealt out over
+    the ranks in turn."""
+    return j % ctx.world
+
+
+def _merged(parts: list) -> _Tally:
+    """One tally of per-batch tallies, in batch order: what one tally fed
+    the same batches in that order holds, bit for bit."""
+    out = _Tally()
+    for t in parts:
+        out.gaps += t.gaps
+        out.rows += t.rows
+        for k, v in t.toks.items():
+            out.toks.setdefault(k, []).extend(v)
+        for k in t.num:
+            out.num[k] = out.num.get(k, 0.0) + t.num[k]
+            out.den[k] = out.den.get(k, 0.0) + t.den[k]
+    return out
+
+
+def _moved(t: _Tally, device) -> _Tally:
+    out = _Tally()
+    out.gaps = [g.to(device) for g in t.gaps]
+    out.rows = [r.to(device) for r in t.rows]
+    out.toks = {k: [e.to(device) for e in v] for k, v in t.toks.items()}
+    out.num, out.den = dict(t.num), dict(t.den)
+    return out
+
+
+def _every_rank(ctx, parts: dict) -> dict:
+    """Every rank's per-batch tallies (``parts``: candidate -> this rank's
+    batches' tallies, in order), by candidate in batch order, on this
+    rank's device."""
+    if ctx.world == 1:
+        return parts
+    import torch.distributed as dist
+    every = [None] * ctx.world
+    mine = {n: [_moved(t, "cpu") for t in ts] for n, ts in parts.items()}
+    dist.all_gather_object(every, mine, group=ctx.host)
+    n_batches = sum(len(next(iter(r.values()))) for r in every)
+    return {n: [_moved(every[checker(ctx, j)][n][j // ctx.world],
+                       ctx.device) for j in range(n_batches)]
+            for n in parts}
+
+
 def _prefill_numbers(ctx, kept, control):
+    """The reference layer by layer over this rank's batches (each layer's
+    leaves drawn once, applied to every batch, and dropped), each batch
+    tallied alone; the tallies of every rank merged in batch order."""
     s, w, ref = ctx.spec, _weights(ctx), ctx.ref
     names = ("program", "control") if control else ("program",)
-    tally = {n: _Tally() for n in names}
-    for bt in kept["batches"]:
-        ids = torch.from_numpy(bt["ids"]).to(ctx.device)
-        kv = []
-        lr = ref.logits(s, w, ref.forward(s, w, ids, kv=kv)[:, -1])
-        cands = {"program": (bt["logits"], bt["pick"],
-                             [(_cache_leaf(bt["caches"], "k")[i],
-                               _cache_leaf(bt["caches"], "v")[i])
-                              for i in range(s.layers)])}
-        if control:
-            kvc = []
-            hc = ref.forward(s, w, ids, quant=ref.fp8, kv=kvc)
-            lc = ref.logits(s, w, hc[:, -1], ref.fp8)
-            cands["control"] = (lc, lc.argmax(-1), kvc)
-            del hc
-        for n, (lg, pick, kvs) in cands.items():
-            tally[n].served(lr, pick)
-            tally[n].logits(lg, lr)
-            for i, ((k, v), (kr, vr)) in enumerate(zip(kvs, kv)):
-                tally[n].cache(("k", i), k, kr)
-                tally[n].cache(("v", i), v, vr)
-        del kv, lr, cands
-    return {n: t.numbers() for n, t in tally.items()}, {}
+    mine = [bt for j, bt in enumerate(kept["batches"])
+            if checker(ctx, j) == ctx.rank]
+    ids = [torch.from_numpy(bt["ids"]).to(ctx.device) for bt in mine]
+    kv = [[] for _ in mine]
+    hs = ref.forward_batches(s, w, ids, kv=kv, done=w.drop)
+    lr = [ref.logits(s, w, h[:, -1]) for h in hs]
+    del hs
+    cands = [{"program": (bt["logits"], bt["pick"],
+                          [(_cache_leaf(bt["caches"], "k")[i],
+                            _cache_leaf(bt["caches"], "v")[i])
+                           for i in range(s.layers)])} for bt in mine]
+    if control:
+        kvc = [[] for _ in mine]
+        hc = ref.forward_batches(s, w, ids, quant=ref.fp8, kv=kvc,
+                                 done=w.drop)
+        for c, h, kvs in zip(cands, hc, kvc):
+            lc = ref.logits(s, w, h[:, -1], ref.fp8)
+            c["control"] = (lc, lc.argmax(-1), kvs)
+        del hc
+    parts = {n: [] for n in names}
+    for c, want, kvr in zip(cands, lr, kv):
+        for n, (lg, pick, kvs) in c.items():
+            t = _Tally()
+            t.served(want, pick)
+            t.logits(lg, want)
+            for i, ((k, v), (kr, vr)) in enumerate(zip(kvs, kvr)):
+                t.cache(("k", i), k, kr)
+                t.cache(("v", i), v, vr)
+            parts[n].append(t)
+    del kv, lr, cands
+    every = _every_rank(ctx, parts)
+    return {n: _merged(ts).numbers() for n, ts in every.items()}, {}
 
 
 def _decode_groups(s, b: int, prompt: int, steps: int, device):

@@ -21,6 +21,7 @@ import dataclasses
 import importlib
 import importlib.util
 import json
+import math
 import pathlib
 import sys
 import time
@@ -53,6 +54,13 @@ class Ctx:
     variant: str | None = None    # "compress": the program's int8 path
     card: str = ""
     marks: dict = dataclasses.field(default_factory=dict)
+    # a cell of several cards: this rank's ``Rules`` over the mesh of the
+    # configuration's ``run.mesh``, its rank, the ranks and the ``gloo``
+    # group of the host's decisions (None: the default group)
+    rules: object = None
+    rank: int = 0
+    world: int = 1
+    host: object = None
 
     def mark(self, name: str) -> None:
         """Seconds from process start to ``name`` (set-up's parts)."""
@@ -124,12 +132,18 @@ def run_cell(ctx: Ctx, *, control: bool = False) -> dict:
     from . import check, program, serve, train
     from .work import peaks
 
-    if ctx.cell["chips"] != 1:
-        # one process drives cuda:0; a cell of more cards needs a rank
-        # launcher, which this harness does not have
+    if ctx.cell["chips"] != ctx.world:
+        # each card is a rank of its own (``bench.ranks``): a cell never
+        # runs on fewer cards than it reports
         raise SystemExit(f"bench: {ctx.workload} asks for "
-                         f"{ctx.cell['chips']} cards; this harness runs "
-                         "cells of one card only")
+                         f"{ctx.cell['chips']} cards; this run has "
+                         f"{ctx.world} ranks")
+    if ctx.world > 1 and ctx.traffic["kind"] != "prefill":
+        raise SystemExit(f"bench: no driver runs {ctx.traffic['kind']} on "
+                         "several cards")
+    if ctx.world > 1 and math.prod(ctx.rules.sizes.values()) != ctx.world:
+        raise SystemExit(f"bench: the mesh {ctx.rules.sizes} is not "
+                         f"{ctx.world} cards")
     ctx.mark("imports")
     ctx.cfg = program.port_config(ctx.conf)
     ctx.ref = importlib.import_module(
@@ -208,6 +222,36 @@ def _power_limit_w() -> float | None:
         return None
 
 
+def mesh_rules(conf: dict, device_type: str):
+    """``make_rules`` over a ``DeviceMesh`` of the configuration's
+    ``run.mesh`` (axis name -> size, in mesh order), in the process group
+    this rank has joined."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.sharding import make_rules
+    dims = conf["run"]["mesh"]
+    mesh = init_device_mesh(device_type, tuple(dims.values()),
+                            mesh_dim_names=tuple(dims))
+    return make_rules(mesh)
+
+
+def rank_run(rank: int, world: int, dev, host, payload):
+    """One rank of a cell of several cards (``bench.ranks.launch``'s
+    target): (result, set-up marks) on rank 0, None on the others."""
+    import torch
+    args, t0 = payload
+    manifest, cell, conf, traffic, limits = load_cell(args.workload)
+    ctx = Ctx(workload=args.workload, seed=args.seed, seconds=args.seconds,
+              trace=bool(args.trace), t0=t0, manifest=manifest, cell=cell,
+              conf=conf, traffic=traffic, limits=limits, device=dev,
+              card=torch.cuda.get_device_name(dev),
+              rules=mesh_rules(conf, dev.type), rank=rank, world=world,
+              host=host)
+    ctx.mark("cuda")
+    out = run_cell(ctx)
+    return (out, ctx.marks) if rank == 0 else None
+
+
 def main(args, t0: float) -> int:
     import torch
     manifest, cell, conf, traffic, limits = load_cell(args.workload)
@@ -218,17 +262,30 @@ def main(args, t0: float) -> int:
         print(f"bench: {args.workload} needs {cell['chips']} cards, "
               f"{torch.cuda.device_count()} present", file=sys.stderr)
         return 2
-    ctx = Ctx(workload=args.workload, seed=args.seed, seconds=args.seconds,
-              trace=bool(args.trace), t0=t0, manifest=manifest, cell=cell,
-              conf=conf, traffic=traffic, limits=limits,
-              device=torch.device("cuda", 0),
-              card=torch.cuda.get_device_name(0))
-    torch.cuda.set_device(0)
-    ctx.mark("cuda")
-    out = run_cell(ctx)
+    if cell["chips"] == 1:      # in this process: no spawn, no group
+        ctx = Ctx(workload=args.workload, seed=args.seed,
+                  seconds=args.seconds, trace=bool(args.trace), t0=t0,
+                  manifest=manifest, cell=cell, conf=conf, traffic=traffic,
+                  limits=limits, device=torch.device("cuda", 0),
+                  card=torch.cuda.get_device_name(0))
+        torch.cuda.set_device(0)
+        ctx.mark("cuda")
+        out, marks = run_cell(ctx), ctx.marks
+    else:
+        from .ranks import RankFailure, launch
+        try:
+            out, marks = launch(cell["chips"], "cuda", rank_run, (args, t0))
+        except RankFailure as e:
+            print(f"bench: {e}; no result", file=sys.stderr)
+            return 1
+    barred = barred_modules()
+    if barred:
+        print(f"bench: modules loaded that no run may load: {barred}",
+              file=sys.stderr)
+        return 1
     out["device"]["power_limit_w"] = _power_limit_w()
     print("set-up marks (s from start): " + ", ".join(
-        f"{k} {v:.2f}" for k, v in ctx.marks.items()), file=sys.stderr)
+        f"{k} {v:.2f}" for k, v in marks.items()), file=sys.stderr)
     for name, c in out["checks"].items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}",
               file=sys.stderr)

@@ -31,38 +31,67 @@ def _walk(tree, path=()):
         yield path, tree
 
 
-def port_params(cfg, conf: dict, ref_shapes: dict, seed: int, device):
+def _slice(t: torch.Tensor, spec: tuple, rules) -> torch.Tensor:
+    """This rank's part of ``t`` laid out by ``spec``, as
+    ``repro_torch.models.params.shard_params`` cuts it (a tuple axis major
+    to minor)."""
+    for i, axis in enumerate(spec):
+        for a in (axis if isinstance(axis, tuple) else (axis,)):
+            if a is None or rules.sizes[a] == 1:
+                continue
+            n = t.shape[i] // rules.sizes[a]
+            t = t.narrow(i, rules.mesh.get_local_rank(a) * n, n)
+    return t
+
+
+def port_params(cfg, conf: dict, ref_shapes: dict, seed: int, device,
+                rules=None):
     """The port's f32 parameter tree (its own structure, from
     ``param_shapes``) holding the benchmark's weights: each leaf, and each
     layer's slice of a stacked one, drawn by ``weights.fill`` under the
     leaf's name, as the reference draws it.  Raises where the port's leaf
-    has another shape than the reference's."""
-    from repro_torch.models.params import param_shapes
+    has another shape than the reference's.
+
+    With ``rules`` (a ``DeviceMesh``'s), each leaf is this rank's
+    ``DTensor`` shard, laid out as ``shard_params`` lays the whole tree
+    out: each (leaf, layer) is drawn whole into one buffer, under the same
+    name and seed, and only this rank's slice of it is kept, so no rank
+    holds more than one whole layer's leaf beyond its shards."""
+    from repro_torch.models.params import param_logical_axes, param_shapes
     init = conf["run"]["init"]
 
-    def build(path, meta):
+    def build(path, meta, axes):
         name = path[-1]
         want, per_layer = ref_shapes[name]
-        out = torch.empty(tuple(meta.shape), dtype=torch.float32,
-                          device=device)
-        if per_layer:
-            if tuple(meta.shape[1:]) != tuple(want):
-                raise ValueError(f"port leaf {path} {tuple(meta.shape)}: "
-                                 f"the reference's layer is {want}")
-            for layer in range(meta.shape[0]):
-                fill(out[layer], init[name], seed, name, layer)
-        else:
-            if tuple(meta.shape) != tuple(want):
-                raise ValueError(f"port leaf {path} {tuple(meta.shape)}: "
-                                 f"the reference's is {want}")
-            fill(out, init[name], seed, name, None)
-        return out
+        shape = tuple(meta.shape)
+        if tuple(shape[1:] if per_layer else shape) != tuple(want):
+            raise ValueError(f"port leaf {path} {shape}: the reference's "
+                             f"{'layer ' if per_layer else ''}is {want}")
+        layers = range(shape[0]) if per_layer else (None,)
+        if rules is None:
+            out = torch.empty(shape, dtype=torch.float32, device=device)
+            for layer in layers:
+                fill(out if layer is None else out[layer], init[name], seed,
+                     name, layer)
+            return out
+        from repro_torch.sharding.collectives import as_dtensor
+        spec = rules.spec(axes, shape)
+        local = torch.empty(rules.local_shape(shape, spec),
+                            dtype=torch.float32, device=device)
+        whole = torch.empty(tuple(want), dtype=torch.float32, device=device)
+        for layer in layers:
+            fill(whole, init[name], seed, name, layer)
+            part = _slice(whole, spec[1:] if per_layer else spec, rules)
+            (local if layer is None else local[layer]).copy_(part)
+        del whole
+        return as_dtensor(local, rules, axes, shape)
 
-    def rebuild(tree, path=()):
+    def rebuild(tree, axes, path=()):
         if isinstance(tree, dict):
-            return {k: rebuild(v, path + (k,)) for k, v in tree.items()}
-        return build(path, tree)
-    return rebuild(param_shapes(cfg))
+            return {k: rebuild(v, axes[k], path + (k,))
+                    for k, v in tree.items()}
+        return build(path, tree, axes)
+    return rebuild(param_shapes(cfg), param_logical_axes(cfg))
 
 
 def tree_leaves(tree) -> list:

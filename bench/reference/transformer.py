@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 __all__ = ["Spec", "leaf_shapes", "exact_matmuls", "fp8", "exact",
-           "forward", "logits", "capacity", "train_loss"]
+           "forward", "forward_batches", "logits", "capacity", "train_loss"]
 
 
 def exact_matmuls() -> None:
@@ -221,16 +221,43 @@ def forward(s: Spec, w, tokens, *, groups=None, order=None, quant=exact,
     groups of the flattened tokens).  ``kv`` (a list) collects each
     layer's keys (after RoPE) and values; ``routes`` each MoE layer's
     expert choices."""
-    b, n = tokens.shape
     if groups is None:
-        flat = torch.arange(b * n, device=tokens.device).reshape(b, n)
-        g = s.groups if (b * n) % max(s.groups, 1) == 0 else 1
-        groups, order = flat // (b * n // g), flat
-    pos = torch.arange(n, device=tokens.device)
+        groups, order = _batch_groups(s, tokens)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
     h = w("embed")[tokens].float()
     for layer in range(s.layers):
         h = _layer(s, w, layer, h, pos, groups, order, quant, kv, routes)
     return _norm(s, h, w("final_norm"))
+
+
+def _batch_groups(s: Spec, tokens):
+    """A batch's ``s.groups`` contiguous token groups of its flattened
+    tokens (one where they do not divide it), and each token's order."""
+    b, n = tokens.shape
+    flat = torch.arange(b * n, device=tokens.device).reshape(b, n)
+    g = s.groups if (b * n) % max(s.groups, 1) == 0 else 1
+    return flat // (b * n // g), flat
+
+
+def forward_batches(s: Spec, w, batches, *, quant=exact, kv=None,
+                    done=None):
+    """``forward`` of each of ``batches`` ((B, S) tokens each, default
+    groups), layer-major: every batch through layer i before any enters
+    layer i + 1, then ``done(i)`` (where the caller lets go of layer i's
+    leaves).  Each batch's arithmetic is ``forward``'s, bit for bit.
+    ``kv``: a list per batch, filled as ``forward``'s."""
+    state = []
+    for tokens in batches:
+        groups, order = _batch_groups(s, tokens)
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        state.append([w("embed")[tokens].float(), pos, groups, order])
+    for layer in range(s.layers):
+        for j, st in enumerate(state):
+            st[0] = _layer(s, w, layer, st[0], *st[1:], quant,
+                           None if kv is None else kv[j])
+        if done is not None:
+            done(layer)
+    return [_norm(s, st[0], w("final_norm")) for st in state]
 
 
 def logits(s: Spec, w, h, quant=exact):

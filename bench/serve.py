@@ -19,7 +19,7 @@ import torch
 
 from . import generate
 from .program import port_params
-from .trace import Traced, span
+from .trace import Traced, across_ranks, span
 from .work import Sizes, lm_work
 
 __all__ = ["Run", "prefill", "decode", "free_program"]
@@ -64,14 +64,56 @@ def _end(ctx, t_start) -> bool:
     return time.perf_counter() - t_start >= ctx.seconds
 
 
+def _stop(ctx, t_start) -> bool:
+    """Whether the window ends here: rank 0's clock decides for every
+    rank, so that all run the same batches."""
+    if ctx.world == 1:
+        return _end(ctx, t_start)
+    import torch.distributed as dist
+    flag = torch.tensor([ctx.rank == 0 and _end(ctx, t_start)],
+                        dtype=torch.int64)
+    dist.broadcast(flag, 0, group=ctx.host)
+    return bool(flag)
+
+
+def _ranks_max(ctx, value: int) -> int:
+    """The largest of every rank's ``value``."""
+    if ctx.world == 1:
+        return value
+    import torch.distributed as dist
+    t = torch.tensor([value], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=ctx.host)
+    return int(t)
+
+
+def _whole(t):
+    """A sharded step's ``DTensor`` gathered whole (a collective); a plain
+    tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _gather_kept(ctx, batches: list) -> None:
+    """Each kept batch's keys and values gathered whole, after the window,
+    and held by the rank that checks it (``check.checker``) alone."""
+    from .check import checker
+    for j, bt in enumerate(batches):
+        mine = checker(ctx, j) == ctx.rank
+        whole = {kind: {n: _whole(leaves[n]) for n in ("k", "v")}
+                 for kind, leaves in bt["caches"].items()}
+        bt["caches"] = whole if mine else None
+
+
 def prefill(ctx) -> Run:
     from repro_torch.models import init_cache
     from repro_torch.train import build_prefill_step
     cfg, traffic, dev = ctx.cfg, ctx.traffic, ctx.device
     on_card = dev.type == "cuda"
-    params = port_params(cfg, ctx.conf, ctx.ref_shapes, ctx.seed, dev)
+    rules = ctx.rules
+    params = port_params(cfg, ctx.conf, ctx.ref_shapes, ctx.seed, dev,
+                         rules)
     ctx.mark("weights")
-    step = build_prefill_step(cfg)
+    step = build_prefill_step(cfg, rules)
     vocab = cfg.vocab_size
     # the batches the check recomputes: ``check_batches`` of the first
     # ``check_among``, drawn from the seed, the first of the longest rows
@@ -92,12 +134,15 @@ def prefill(ctx) -> Run:
             ids = generate.uniform_ids(ctx.seed, stream, index, b, s, vocab)
             tokens = torch.from_numpy(ids).to(dev, non_blocking=True)
         with span("allocate caches"):
-            caches = init_cache(cfg, b, s, device=dev)
+            caches = init_cache(cfg, b, s, device=dev, rules=rules)
         with span("step call"):
             logits, caches = step(params, {"tokens": tokens}, caches)
         with span("greedy pick"):
-            pick = logits[:, -1].argmax(-1)
-        out = {"shape": shape, "logits": logits[:, -1], "pick": pick}
+            if rules is not None:       # the vocab's slices gathered
+                logits = _whole(logits)
+            last = logits[:, -1]
+            pick = last.argmax(-1)
+        out = {"shape": shape, "logits": last, "pick": pick}
         if keep_caches:
             out["ids"], out["caches"] = ids, caches
         return out
@@ -113,6 +158,9 @@ def prefill(ctx) -> Run:
     units = traffic["trace_units"] if ctx.trace else None
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+    if ctx.world > 1:
+        import torch.distributed as dist
+        dist.barrier(group=ctx.host)    # every rank starts its window here
     with Traced(ctx.trace, on_card) as tr:
         t_start = time.perf_counter()
         i = 0
@@ -122,13 +170,19 @@ def prefill(ctx) -> Run:
             if units is not None:
                 if i >= units:
                     break
-            elif i > max(check) and i % cycle == 0 and _end(ctx, t_start):
+            elif i > max(check) and i % cycle == 0 and _stop(ctx, t_start):
                 break                   # at a whole cycle: the mix's work
         with span("sync"):
             if on_card:
                 torch.cuda.synchronize()
+            if ctx.world > 1:           # the slowest rank's end
+                dist.barrier(group=ctx.host)
         elapsed = time.perf_counter() - t_start
-    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    peak = _ranks_max(ctx, torch.cuda.max_memory_allocated()
+                      if on_card else 0)
+    summary = tr.summary
+    if ctx.world > 1 and summary is not None:
+        summary = across_ranks(summary, ctx.host, ctx.world)
     tokens = sum(o["shape"][0] * o["shape"][1] for o in outs)
     rows = sum(o["shape"][0] for o in outs)
     work = {"bf16_ops": 0, "f32_ops": 0, "bytes": 0}
@@ -144,10 +198,13 @@ def prefill(ctx) -> Run:
             "batches": [o for i, o in enumerate(outs) if i in check]}
     del params, step, outs
     free_program()
+    if rules is not None:
+        _gather_kept(ctx, kept["batches"])
+        free_program()
     return Run(attempted=rows, failed=0,
                e2e={"prefill_tokens_per_s": tokens / elapsed,
                     "setup_s": setup_s},
-               work=work, units=i, trace=tr.summary, memory_peak=peak,
+               work=work, units=i, trace=summary, memory_peak=peak,
                kept=kept)
 
 

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from bench import check
+from bench.faults import half_batch
 from bench.harness import run_cell
 from bench.small import small_ctx
 
@@ -135,7 +136,6 @@ def _train_fault(fault: str):
     """The port's train step returning the state it was given, or taking
     its gradient over the first half of the batch's rows (their mean)."""
     from repro_torch import train as train_pkg
-    from repro_torch.train import step as step_mod
     if fault == "unchanged":
         build = train_pkg.build_train_step
 
@@ -149,12 +149,7 @@ def _train_fault(fault: str):
         with mock.patch.object(train_pkg, "build_train_step", frozen):
             yield
         return
-    whole = step_mod.accumulate_grads
-
-    def half(cfg, params, batch, **kw):
-        n = next(iter(batch.values())).shape[0] // 2
-        return whole(cfg, params, {k: v[:n] for k, v in batch.items()}, **kw)
-    with mock.patch.object(step_mod, "accumulate_grads", half):
+    with half_batch():
         yield
 
 
@@ -163,12 +158,3 @@ def test_train_fault_is_caught(fault):
     with _train_fault(fault):
         out = _run(TRAIN, SEEDS[0])
     assert not out["correct"], (fault, out["checks"])
-
-
-def test_cell_of_more_cards_is_refused():
-    """No rank launcher: a cell asking for 4 cards must not run on one and
-    report 4."""
-    ctx = small_ctx(PREFILL, SEEDS[0])
-    ctx.cell = {**ctx.cell, "chips": 4}
-    with pytest.raises(SystemExit, match="4 cards"):
-        run_cell(ctx)

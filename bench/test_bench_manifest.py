@@ -4,6 +4,7 @@ chips, and every file it names present under ``bench/``."""
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import re
 
@@ -84,6 +85,21 @@ def test_workloads():
         assert (ROOT / "bench" / "limits" / f"{w['name']}.json").is_file()
     four = sum(w["chips"] == 4 for w in cells)
     assert four <= max(1, len(cells) // 4)
+
+
+def test_cells_of_several_cards_name_their_mesh():
+    """A cell of more than one card runs its configuration's ``run.mesh``
+    (axis -> size), one rank a card; at most a quarter of the cells
+    (rounded down), or one, ask for more than one."""
+    files = {c["name"]: c["file"] for c in MANIFEST["configs"]}
+    cells = MANIFEST["workloads"]
+    several = [w for w in cells if w["chips"] > 1]
+    for w in several:
+        mesh = json.loads((ROOT / files[w["config"]]).read_text())["run"][
+            "mesh"]
+        assert list(mesh) == ["data", "model"], mesh
+        assert math.prod(mesh.values()) == w["chips"], (w["name"], mesh)
+    assert len(several) <= max(1, len(cells) // 4)
 
 
 def _reports(metric: dict) -> set:

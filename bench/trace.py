@@ -1,9 +1,11 @@
 """The traced run's device numbers, from ``torch.profiler`` (CUPTI):
 the union of the device's operation intervals inside the traced window,
+the union of its collectives' (NCCL kernels, names starting ``nccl``),
 every operation's device time by name (``by_op``, for the per-layer
 readers; the ten largest are the result's ``device_ops``), and the idle
 gaps named after the harness's own spans (``record_function`` around each
-call into a layer).
+call into a layer).  A run of several cards traces every rank and
+averages the times over them (``across_ranks``).
 
 Spans are the harness's, around its calls into the program: ``make
 inputs``, ``allocate caches``, ``step call``, ``greedy pick``, ``sync``;
@@ -12,7 +14,7 @@ program are not there yet.
 """
 from __future__ import annotations
 
-__all__ = ["SPANS", "span", "Traced", "summarise"]
+__all__ = ["SPANS", "span", "Traced", "summarise", "across_ranks"]
 
 SPANS = ("make inputs", "allocate caches", "step call", "greedy pick",
          "sync")
@@ -72,17 +74,27 @@ def _union(spans):
     return sum(b - a for a, b in pieces), pieces
 
 
+def _collective(e) -> bool:
+    """An NCCL kernel (c10d's ``nccl:<op>`` annotations are left out
+    before)."""
+    return (e.name.startswith("nccl")
+            and not getattr(e, "is_user_annotation", False))
+
+
 def summarise(events) -> dict:
-    """``busy_s``, ``window_s``, ``by_op``, ``device_ops`` and
-    ``idle_gaps`` (seconds) of the profiled events (microseconds)."""
+    """``busy_s``, ``window_s``, ``collective_s``, ``by_op``,
+    ``device_ops`` and ``idle_gaps`` (seconds) of the profiled events
+    (microseconds)."""
     win = [e for e in events if e.name == "window"
            and e.device_type.name == "CPU"]
     if not win:
         raise RuntimeError("the traced window's span is missing")
     w0, w1 = win[0].time_range.start, win[0].time_range.end
-    dev, host = [], []
+    dev, host, coll = [], [], []
     for e in events:
         a, b = e.time_range.start, e.time_range.end
+        if e.name.startswith("nccl:"):
+            continue        # c10d's annotation around an NCCL kernel
         if e.name in SPANS or e.name == "window":
             # a span's copy on the device's timeline is no operation; an
             # idle gap is named after the harness span (not the window)
@@ -94,7 +106,10 @@ def summarise(events) -> dict:
             a, b = max(a, w0), min(b, w1)
             if b > a:
                 dev.append((e.name, a, b))
+                if _collective(e):
+                    coll.append((a, b))
     busy, pieces = _union([(a, b) for _, a, b in dev])
+    coll, _ = _union(coll)
     by_op: dict = {}
     for n, a, b in dev:
         by_op[n] = by_op.get(n, 0.0) + (b - a)
@@ -109,9 +124,25 @@ def summarise(events) -> dict:
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:TOP]
     return {
         "busy_s": busy / 1e6, "window_s": (w1 - w0) / 1e6,
+        "collective_s": coll / 1e6,
         "by_op": {n: t / 1e6 for n, t in by_op.items()},
         "device_ops": [[n[:160], t / 1e6] for n, t in top],
         "idle_gaps": [[n, t / 1e6] for n, t in
                       sorted(gaps.items(), key=lambda kv: -kv[1])[:TOP]],
     }
 
+
+
+def across_ranks(summary: dict, group, world: int) -> dict:
+    """Rank 0's ``summary`` (its operations and idle gaps) with
+    ``busy_s``, ``window_s`` and ``collective_s`` the mean over every
+    rank's trace, and each rank's under ``<name>_by_rank``."""
+    import torch.distributed as dist
+    keys = ("busy_s", "window_s", "collective_s")
+    every = [None] * world
+    dist.all_gather_object(every, {k: summary[k] for k in keys}, group=group)
+    out = dict(summary)
+    for k in keys:
+        out[k] = sum(r[k] for r in every) / world
+        out[k + "_by_rank"] = [r[k] for r in every]
+    return out

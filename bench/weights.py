@@ -40,7 +40,8 @@ def fill(out: torch.Tensor, rule: list, seed: int, name: str,
 
 class Weights:
     """``w(name, layer=None)``: leaf ``name`` (of ``layer``), drawn on
-    ``device`` the first time it is asked for, and kept."""
+    ``device`` the first time it is asked for, and kept until
+    ``drop(layer)``."""
 
     def __init__(self, init: dict, shapes: dict, seed: int, device,
                  layers: int):
@@ -56,6 +57,11 @@ class Weights:
             self.held[key] = fill(out, self.init[name], self.seed, name,
                                   layer)
         return self.held[key]
+
+    def drop(self, layer: int) -> None:
+        """Let go of every leaf of ``layer`` (drawn again if asked for)."""
+        for key in [k for k in self.held if k[1] == layer]:
+            del self.held[key]
 
     def leaves(self) -> dict:
         """Every leaf as a tensor that requires a gradient, by (name,
